@@ -1,0 +1,178 @@
+"""GQA attention for the serving path (``repro.models.attention``).
+
+Decode writes the new K/V into the paged pool in place and runs the
+paged flash-decode kernel, which reads K/V through the block table; no
+gathered view is built.  Chunked prefill writes the chunk into the pool
+and attends over the gathered logical view with ``_sdpa_ref``, as the
+reference does there.  Caches hold the compute dtype (fp8 storage and
+sliding-window ring buffers are not ported).
+
+The cache tensors are updated in place (the reference returns new
+immutable arrays); the functions still return the cache so their
+signatures read the same.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_decode import NEG_INF, paged_read_index
+
+from .layers import apply_rope, linear, softcap
+from .meta import ParamMeta
+
+# -- masks --------------------------------------------------------------------
+
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
+    """[Sq, Sk] causal boolean mask."""
+    return q_pos[:, None] >= kv_pos[None, :]
+
+
+# -- GQA ----------------------------------------------------------------------
+
+def gqa_meta(cfg) -> dict[str, ParamMeta]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    dt = cfg.param_dtype
+    return {
+        "wq": ParamMeta((d, h * hd), dt, "fan_in"),
+        "wk": ParamMeta((d, kv * hd), dt, "fan_in"),
+        "wv": ParamMeta((d, kv * hd), dt, "fan_in"),
+        "wo": ParamMeta((h * hd, d), dt, "fan_in"),
+    }
+
+
+def _qkv(p, x, cfg, positions):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = linear(x, p["wq"]).reshape(b, s, h, hd)
+    k = linear(x, p["wk"]).reshape(b, s, kv, hd)
+    v = linear(x, p["wv"]).reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_ref(q, k, v, mask, scale, cap: float = 0.0):
+    """Reference grouped attention.  q ``[B, S, H, D]``, k/v
+    ``[B, S, Kv, D]``; mask ``[Sq, Sk]`` shared or ``[B, Sq, Sk]``."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q = q.reshape(b, sq, kvh, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    scores = softcap(scores, cap)
+    m = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    scores = torch.where(m, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def gqa_attention(p, x, cfg, *, positions):
+    """Full-sequence attention (the ``forward`` path)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    mask = make_mask(positions, positions)
+    out = _sdpa_ref(q, k, v, mask, scale, cfg.logit_softcap)
+    return linear(out.reshape(b, s, -1), p["wo"])
+
+
+def gqa_cache_spec(cfg, batch: int, max_seq: int, paged=None):
+    """Cache metas for one layer: ``paged=(num_blocks, block_size)`` lays
+    the cache out as a block pool shared by all slots."""
+    if paged is None:
+        raise NotImplementedError("the dense KV cache is not ported; "
+                                  "use the paged layout")
+    num_blocks, block_size = paged
+    p = num_blocks * block_size
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = cfg.resolved_cache_dtype
+    return {"k": ParamMeta((p, kv, hd), dt, "zeros"),
+            "v": ParamMeta((p, kv, hd), dt, "zeros")}
+
+
+# -- paged (block-table) addressing -------------------------------------------
+# ``block_table`` is anything with ``.table`` ([B, MB] int32 physical block
+# ids on the model's device) and ``.block_size`` (int); the class lives in
+# repro_torch/serving/kv_cache.py.
+
+def _paged_write_index(block_table, pos):
+    """Physical pool row for writing position ``pos`` ([B] or [B, T]).
+    Block indices past the table clamp to its last column, as the
+    reference's gather does; such writes must be dropped by the caller."""
+    bs = block_table.block_size
+    table = block_table.table
+    col = (pos // bs).reshape(pos.shape[0], -1).clamp(max=table.shape[1] - 1)
+    blk = torch.gather(table, 1, col.long()).reshape(pos.shape)
+    return blk.long() * bs + pos % bs
+
+
+def _paged_read_index(block_table):
+    """[B, L] physical pool rows of the full logical view (L = max_blocks
+    * block_size); unmapped blocks resolve to the trash block 0."""
+    return paged_read_index(block_table.table, block_table.block_size)
+
+
+def _paged_gather(cache, block_table):
+    """Gather the logical [B, L, Kv, D] K/V view through the table."""
+    idx = _paged_read_index(block_table)
+    return cache["k"][idx], cache["v"][idx]
+
+
+def decode_valid_mask(pos, s_cache: int):
+    """Causal validity over cache positions ``[..., S]``: position ``s``
+    is visible to a query at ``pos`` ([B] per slot, or [B, T] per chunk
+    token) when ``s <= pos``."""
+    idx = torch.arange(s_cache, device=pos.device)
+    return idx <= pos[..., None]
+
+
+def gqa_decode(p, cache, x, cfg, *, pos, block_table):
+    """One decode step over the paged pool.  x ``[B, 1, D]``; pos ``[B]``
+    int per-slot positions.  Writes the new K/V at ``pos`` through the
+    table, then attends positions ``0..pos`` with the paged kernel."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = linear(x, p["wq"]).reshape(b, 1, h, hd)
+    k = linear(x, p["wk"]).reshape(b, 1, kv, hd)
+    v = linear(x, p["wv"]).reshape(b, 1, kv, hd)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]     # [B, H, D]
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    phys = _paged_write_index(block_table, pos)               # [B]
+    cache["k"][phys] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][phys] = v[:, 0].to(cache["v"].dtype)
+    lengths = (pos + 1).to(torch.int32)
+    out = kops.paged_decode(q.contiguous(), cache["k"], cache["v"],
+                            block_table.table, lengths,
+                            block_size=block_table.block_size,
+                            scale=1.0 / math.sqrt(hd), cap=cfg.logit_softcap)
+    return linear(out.reshape(b, 1, -1), p["wo"]), cache
+
+
+def gqa_prefill_chunk(p, cache, x, cfg, *, positions, count, block_table):
+    """Chunked batched prefill: x ``[B, T, D]`` at per-token positions
+    ``[B, T]``; the first ``count[b]`` tokens of each row are real (0 =
+    slot not prefilling: its writes are dropped and its outputs are
+    garbage the caller discards)."""
+    b, t, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    tok_valid = (torch.arange(t, device=x.device)[None, :]
+                 < count[:, None])
+    # padding tokens write into the trash block 0 instead of being
+    # dropped: nothing reads it as valid, and no host sync is needed
+    bs = block_table.block_size
+    phys = _paged_write_index(block_table, positions)         # [B, T]
+    phys = torch.where(tok_valid, phys, positions % bs)
+    cache["k"][phys] = k.to(cache["k"].dtype)
+    cache["v"][phys] = v.to(cache["v"].dtype)
+    k_view, v_view = _paged_gather(cache, block_table)
+    mask = decode_valid_mask(positions, k_view.shape[1])      # [B, T, S]
+    out = _sdpa_ref(q, k_view.to(x.dtype), v_view.to(x.dtype), mask,
+                    1.0 / math.sqrt(cfg.resolved_head_dim),
+                    cfg.logit_softcap)
+    return linear(out.reshape(b, t, -1), p["wo"]), cache

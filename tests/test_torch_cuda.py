@@ -1,0 +1,112 @@
+"""The port's kernels on the card, against their plain versions.
+
+These tests need an NVIDIA card (sm_90a) and nvcc; elsewhere they skip.
+Run them on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
+Tolerances as in chip_smoke.py: bf16 within 2 ulps (rtol 2^-6) plus a
+small atol for the decode's fp32-vs-bf16 softmax weights; fp32 to 1e-5.
+"""
+
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ops, rmsnorm
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2.0 ** -6),
+       torch.float32: dict(atol=1e-5, rtol=1e-5)}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 4096), (1024, 4096), (3, 5, 64)])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.float32)])
+def test_rms_norm_kernel_matches_plain(gen, shape, dtype, wdtype):
+    x = _randn(gen, *shape, dtype=dtype)
+    w = _randn(gen, shape[-1], dtype=wdtype)
+    before = rmsnorm.launches
+    got = ops.rms_norm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    torch.testing.assert_close(got, rmsnorm.plain(x, w), **TOL[dtype])
+
+
+@pytest.mark.parametrize("h,kvh,d,cap", [(32, 32, 128, 0.0),
+                                         (32, 8, 128, 30.0),
+                                         (8, 2, 64, 0.0), (4, 4, 256, 0.0),
+                                         (4, 1, 32, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_matches_plain(gen, h, kvh, d, cap, dtype):
+    b, bs, mb = 5, 16, 12
+    num_blocks = b * mb + 1
+    lengths = torch.tensor([192, 1, 77, 1, 16], dtype=torch.int32,
+                           device="cuda")
+    table = torch.zeros(b, mb, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    used = 0
+    for i in (0, 2, 4):                      # rows 1 and 3 stay inactive
+        n = -(-int(lengths[i]) // bs)
+        table[i, :n] = perm[used:used + n].int()
+        used += n
+    q = _randn(gen, b, h, d, dtype=dtype)
+    k = _randn(gen, num_blocks * bs, kvh, d, dtype=dtype)
+    v = _randn(gen, num_blocks * bs, kvh, d, dtype=dtype)
+    kw = dict(block_size=bs, scale=1 / math.sqrt(d), cap=cap)
+    got = ops.paged_decode(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, fd.paged_plain(q, k, v, table, lengths, **kw), **TOL[dtype])
+
+
+def test_flash_decode_contiguous_entry_matches_plain(gen):
+    q = _randn(gen, 6, 128, dtype=torch.bfloat16)
+    k = _randn(gen, 6, 320, 128, dtype=torch.bfloat16)
+    v = _randn(gen, 6, 320, 128, dtype=torch.bfloat16)
+    valid = torch.rand(6, 320, generator=gen, device="cuda") < 0.3
+    valid[1] = False
+    got = ops.flash_decode(q, k, v, valid)
+    torch.testing.assert_close(got, fd.contiguous_plain(q, k, v, valid),
+                               **TOL[torch.bfloat16])
+    assert not got[1].any()
+    shared = torch.arange(320, device="cuda") < 100
+    torch.testing.assert_close(ops.flash_decode(q, k, v, shared),
+                               fd.contiguous_plain(q, k, v, shared),
+                               **TOL[torch.bfloat16])
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x = _randn(gen, 8, 4096, dtype=torch.bfloat16)
+    w = _randn(gen, 4096, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rms_norm(x.t(), _randn(gen, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.rms_norm(x.half(), w)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.rms_norm(x, w.cpu())
+    q = _randn(gen, 2, 4, 48)
+    pool = _randn(gen, 16, 4, 48)
+    table = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    lengths = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode(q, pool, pool, table, lengths, block_size=8,
+                         scale=1.0)
+    q = _randn(gen, 2, 4, 64)
+    pool = _randn(gen, 16, 4, 64)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode(q, pool, pool, table.long(), lengths, block_size=8,
+                         scale=1.0)
