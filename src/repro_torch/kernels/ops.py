@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 
 from . import flash_decode as _fd
+from . import flash_verify as _fv
 from . import rmsnorm as _rms
 
-KERNELS = {"rms_norm": _rms, "paged_decode": _fd}
+KERNELS = {"rms_norm": _rms, "paged_decode": _fd, "paged_verify": _fv}
 
 
 def launch_counts() -> dict[str, int]:
@@ -87,15 +88,9 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if not _on_cuda(q, k_pool, v_pool, table, lengths):
         return _fd.paged_plain(q, k_pool, v_pool, table, lengths,
                                block_size=block_size, scale=scale, cap=cap)
-    _check_decode(q, k_pool, v_pool)
-    b = q.shape[0]
-    _require(table.dtype == torch.int32 and table.ndim == 2
-             and table.shape[0] == b and table.is_contiguous(),
-             f"paged_decode: table must be contiguous int32 [B={b}, MB]")
-    _require(lengths.dtype == torch.int32 and lengths.shape == (b,)
-             and lengths.is_contiguous(),
-             f"paged_decode: lengths must be contiguous int32 [B={b}]")
-    _require(block_size >= 1, "paged_decode: block_size must be >= 1")
+    _check_attention("paged_decode", q, k_pool, v_pool, 3)
+    _check_paging("paged_decode", q.shape[0], table, block_size,
+                  lengths=lengths)
     out = torch.empty_like(q)
     _fd.launch(q, k_pool, v_pool, table, lengths, None, out,
                block_size=block_size, scale=scale, cap=cap)
@@ -125,7 +120,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q3 = q.contiguous().view(n, 1, d)
     kp = k.contiguous().view(n * s, 1, d)
     vp = v.contiguous().view(n * s, 1, d)
-    _check_decode(q3, kp, vp)
+    _check_attention("flash_decode", q3, kp, vp, 3)
     table = torch.arange(n, dtype=torch.int32, device=q.device)[:, None]
     lengths = torch.full((n,), s, dtype=torch.int32, device=q.device)
     mask = valid.expand(n, s).contiguous()
@@ -135,23 +130,100 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(n, d)
 
 
-def _check_decode(q, k_pool, v_pool) -> None:
+def paged_verify(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 table: torch.Tensor, start: torch.Tensor, count: torch.Tensor,
+                 *, block_size: int, scale: float,
+                 cap: float = 0.0) -> torch.Tensor:
+    """Chunked-prefill / speculative-verify attention over the paged pool.
+
+    q ``[B, T, H, D]``; k_pool, v_pool ``[P, Kv, D]`` (one layer's pool);
+    table ``[B, MB]`` int32 physical block ids; start, count ``[B]``
+    int32.  Row ``t < count[b]`` is the query at position ``start[b] +
+    t`` and attends positions ``0..start[b] + t``; rows past ``count``
+    come back as zeros.  Returns ``[B, T, H, D]`` in q's dtype."""
+    if not _on_cuda(q, k_pool, v_pool, table, start, count):
+        return _fv.paged_plain(q, k_pool, v_pool, table, start, count,
+                               block_size=block_size, scale=scale, cap=cap)
+    _check_attention("paged_verify", q, k_pool, v_pool, 4)
+    _check_paging("paged_verify", q.shape[0], table, block_size,
+                  start=start, count=count)
+    out = torch.empty_like(q)
+    _fv.launch(q, k_pool, v_pool, table, start, count, None, out,
+               block_size=block_size, scale=scale, cap=cap)
+    return out
+
+
+def flash_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, *, scale: float | None = None,
+                 cap: float = 0.0) -> torch.Tensor:
+    """The reference's signature (``repro.kernels.ops.flash_verify``):
+    q ``[N, T, D]``, k, v ``[N, S, D]``, valid bool ``[N, T, S]`` ->
+    ``[N, T, D]``.  On the card it runs the paged kernel with one block
+    of S positions per row, every row's causal limit at S - 1 and
+    ``valid`` as its mask (inputs of another layout are copied to a
+    contiguous one first)."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if not _on_cuda(q, k, v, valid):
+        return _fv.contiguous_plain(q, k, v, valid, scale=scale, cap=cap)
+    _require(q.ndim == 3 and k.ndim == 3 and k.shape == v.shape
+             and k.shape[0] == q.shape[0] and k.shape[2] == q.shape[2],
+             f"flash_verify: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+             f"v {tuple(v.shape)}")
+    n, t, d = q.shape
+    s = k.shape[1]
+    _require(valid.dtype == torch.bool and valid.shape == (n, t, s),
+             f"flash_verify: valid must be bool [N, T, S] = {(n, t, s)}; "
+             f"got {valid.dtype} {tuple(valid.shape)}")
+    q4 = q.contiguous().view(n, t, 1, d)
+    kp = k.contiguous().view(n * s, 1, d)
+    vp = v.contiguous().view(n * s, 1, d)
+    _check_attention("flash_verify", q4, kp, vp, 4)
+    table = torch.arange(n, dtype=torch.int32, device=q.device)[:, None]
+    start = torch.full((n,), s - 1, dtype=torch.int32, device=q.device)
+    count = torch.full((n,), t, dtype=torch.int32, device=q.device)
+    out = torch.empty_like(q4)
+    _fv.launch(q4, kp, vp, table, start, count, valid.contiguous(), out,
+               block_size=s, scale=scale, cap=cap)
+    return out.view(n, t, d)
+
+
+_Q_SHAPE = {3: "[B, H, D]", 4: "[B, T, H, D]"}
+
+
+def _check_attention(name: str, q, k_pool, v_pool, q_ndim: int) -> None:
+    """q ``[B, H, D]`` or ``[B, T, H, D]`` against pools ``[P, Kv, D]``
+    of q's dtype."""
     _require(q.dtype in (torch.float32, torch.bfloat16)
              and k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
-             f"paged_decode: dtypes q {q.dtype}, k {k_pool.dtype}, "
+             f"{name}: dtypes q {q.dtype}, k {k_pool.dtype}, "
              f"v {v_pool.dtype} must match and be float32/bfloat16")
-    _require(q.ndim == 3 and k_pool.ndim == 3 and k_pool.shape == v_pool.shape,
-             f"paged_decode: q {tuple(q.shape)} must be [B, H, D] and the "
-             f"pools [P, Kv, D]; got k {tuple(k_pool.shape)}, "
+    _require(q.ndim == q_ndim and k_pool.ndim == 3
+             and k_pool.shape == v_pool.shape,
+             f"{name}: q {tuple(q.shape)} must be {_Q_SHAPE[q_ndim]} and "
+             f"the pools [P, Kv, D]; got k {tuple(k_pool.shape)}, "
              f"v {tuple(v_pool.shape)}")
-    _, h, d = q.shape
+    h, d = q.shape[-2:]
     kvh = k_pool.shape[1]
     _require(k_pool.shape[2] == d and d in _fd.HEAD_DIMS,
-             f"paged_decode: head_dim {d} must match the pool and be one "
+             f"{name}: head_dim {d} must match the pool and be one "
              f"of {_fd.HEAD_DIMS}")
-    _require(h % kvh == 0, f"paged_decode: {h} heads over {kvh} kv heads")
+    _require(h % kvh == 0, f"{name}: {h} heads over {kvh} kv heads")
     _require(q.is_contiguous() and k_pool.is_contiguous()
              and v_pool.is_contiguous(),
-             "paged_decode: q and the pools must be contiguous")
+             f"{name}: q and the pools must be contiguous")
     _require(all(_aligned(t) for t in (q, k_pool, v_pool)),
-             "paged_decode: q and the pools must be 16-byte aligned")
+             f"{name}: q and the pools must be 16-byte aligned")
+
+
+def _check_paging(name: str, b: int, table, block_size: int,
+                  **per_slot: torch.Tensor) -> None:
+    """The block table and each per-slot int32 ``[B]`` argument."""
+    _require(table.dtype == torch.int32 and table.ndim == 2
+             and table.shape[0] == b and table.is_contiguous(),
+             f"{name}: table must be contiguous int32 [B={b}, MB]")
+    for arg, t in per_slot.items():
+        _require(t.dtype == torch.int32 and t.shape == (b,)
+                 and t.is_contiguous(),
+                 f"{name}: {arg} must be contiguous int32 [B={b}]")
+    _require(block_size >= 1, f"{name}: block_size must be >= 1")

@@ -1,11 +1,11 @@
 """GQA attention for the serving path (``repro.models.attention``).
 
 Decode writes the new K/V into the paged pool in place and runs the
-paged flash-decode kernel, which reads K/V through the block table; no
-gathered view is built.  Chunked prefill writes the chunk into the pool
-and attends over the gathered logical view with ``_sdpa_ref``, as the
-reference does there.  Caches hold the compute dtype (fp8 storage and
-sliding-window ring buffers are not ported).
+paged flash-decode kernel; chunked prefill (and the speculative wide
+verify, which goes through it) writes the chunk into the pool and runs
+the paged flash-verify kernel.  Both kernels read K/V through the block
+table, so no gathered view is built.  Caches hold the compute dtype (fp8
+storage and sliding-window ring buffers are not ported).
 
 The cache tensors are updated in place (the reference returns new
 immutable arrays); the functions still return the cache so their
@@ -19,9 +19,9 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.flash_decode import NEG_INF, paged_read_index
+from repro_torch.kernels.flash_verify import grouped_attention_plain
 
-from .layers import apply_rope, linear, softcap
+from .layers import apply_rope, linear
 from .meta import ParamMeta
 
 # -- masks --------------------------------------------------------------------
@@ -56,29 +56,15 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def _sdpa_ref(q, k, v, mask, scale, cap: float = 0.0):
-    """Reference grouped attention.  q ``[B, S, H, D]``, k/v
-    ``[B, S, Kv, D]``; mask ``[Sq, Sk]`` shared or ``[B, Sq, Sk]``."""
-    b, sq, h, d = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    q = q.reshape(b, sq, kvh, g, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
-    scores = softcap(scores, cap)
-    m = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
-    scores = torch.where(m, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
-    return out.reshape(b, sq, h, v.shape[-1])
-
-
 def gqa_attention(p, x, cfg, *, positions):
-    """Full-sequence attention (the ``forward`` path)."""
+    """Full-sequence attention (the ``forward`` path): the plain grouped
+    attention, in the reference ``_sdpa_ref``'s order of rounding."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    mask = make_mask(positions, positions)
-    out = _sdpa_ref(q, k, v, mask, scale, cfg.logit_softcap)
+    mask = make_mask(positions, positions).expand(b, s, s)
+    out = grouped_attention_plain(
+        q, k, v, mask, scale=1.0 / math.sqrt(cfg.resolved_head_dim),
+        cap=cfg.logit_softcap)
     return linear(out.reshape(b, s, -1), p["wo"])
 
 
@@ -112,26 +98,6 @@ def _paged_write_index(block_table, pos):
     return blk.long() * bs + pos % bs
 
 
-def _paged_read_index(block_table):
-    """[B, L] physical pool rows of the full logical view (L = max_blocks
-    * block_size); unmapped blocks resolve to the trash block 0."""
-    return paged_read_index(block_table.table, block_table.block_size)
-
-
-def _paged_gather(cache, block_table):
-    """Gather the logical [B, L, Kv, D] K/V view through the table."""
-    idx = _paged_read_index(block_table)
-    return cache["k"][idx], cache["v"][idx]
-
-
-def decode_valid_mask(pos, s_cache: int):
-    """Causal validity over cache positions ``[..., S]``: position ``s``
-    is visible to a query at ``pos`` ([B] per slot, or [B, T] per chunk
-    token) when ``s <= pos``."""
-    idx = torch.arange(s_cache, device=pos.device)
-    return idx <= pos[..., None]
-
-
 def gqa_decode(p, cache, x, cfg, *, pos, block_table):
     """One decode step over the paged pool.  x ``[B, 1, D]``; pos ``[B]``
     int per-slot positions.  Writes the new K/V at ``pos`` through the
@@ -155,10 +121,14 @@ def gqa_decode(p, cache, x, cfg, *, pos, block_table):
 
 
 def gqa_prefill_chunk(p, cache, x, cfg, *, positions, count, block_table):
-    """Chunked batched prefill: x ``[B, T, D]`` at per-token positions
-    ``[B, T]``; the first ``count[b]`` tokens of each row are real (0 =
-    slot not prefilling: its writes are dropped and its outputs are
-    garbage the caller discards)."""
+    """Chunked batched prefill, and the speculative wide verify: x
+    ``[B, T, D]`` at per-token positions ``[B, T]`` (``start[b] + t``);
+    the first ``count[b]`` tokens of each row are real (0 = slot not
+    prefilling: its writes are dropped and its outputs, zeros here, are
+    garbage the caller discards).  The chunk's K/V go into the pool
+    first, so its queries read back cache-dtype values as the reference's
+    do; then the paged flash-verify kernel attends each token to
+    positions ``0..start[b] + t`` through the table."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     tok_valid = (torch.arange(t, device=x.device)[None, :]
@@ -170,9 +140,9 @@ def gqa_prefill_chunk(p, cache, x, cfg, *, positions, count, block_table):
     phys = torch.where(tok_valid, phys, positions % bs)
     cache["k"][phys] = k.to(cache["k"].dtype)
     cache["v"][phys] = v.to(cache["v"].dtype)
-    k_view, v_view = _paged_gather(cache, block_table)
-    mask = decode_valid_mask(positions, k_view.shape[1])      # [B, T, S]
-    out = _sdpa_ref(q, k_view.to(x.dtype), v_view.to(x.dtype), mask,
-                    1.0 / math.sqrt(cfg.resolved_head_dim),
-                    cfg.logit_softcap)
+    out = kops.paged_verify(
+        q.contiguous(), cache["k"], cache["v"], block_table.table,
+        positions[:, 0].to(torch.int32).contiguous(),
+        count.to(torch.int32), block_size=bs,
+        scale=1.0 / math.sqrt(cfg.resolved_head_dim), cap=cfg.logit_softcap)
     return linear(out.reshape(b, t, -1), p["wo"]), cache

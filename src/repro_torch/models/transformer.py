@@ -92,11 +92,10 @@ class LM:
     def supports_chunked_prefill(self) -> bool:
         return self.supports_paged_cache()
 
-    def prefill_step(self, p, cache, tokens, start, count, *, block_table):
-        """Chunked batched prefill: a ``[B, T]`` chunk per slot, written
-        into ``cache`` at positions ``start[b] + t`` for the first
-        ``count[b]`` tokens of each row (count 0 = slot untouched).
-        Updates the pools in place and returns them."""
+    def _chunk(self, p, cache, tokens, start, count, block_table):
+        """Run a ``[B, T]`` token span per slot through every layer,
+        writing K/V at ``start[b] + t`` for the first ``count[b]`` tokens
+        of each row; returns the last hidden states ``[B, T, D]``."""
         tokens = self._tensor(tokens, torch.long)
         x = embed(p["embed"], tokens, self.cfg)
         t = tokens.shape[1]
@@ -107,7 +106,30 @@ class LM:
         for stage, sp, sc in zip(self.stages, p["stages"], cache):
             x, _ = stage.prefill_chunk(sp, sc, x, positions=positions,
                                        count=count, block_table=block_table)
+        return x
+
+    def prefill_step(self, p, cache, tokens, start, count, *, block_table):
+        """Chunked batched prefill: a ``[B, T]`` chunk per slot, written
+        into ``cache`` at positions ``start[b] + t`` for the first
+        ``count[b]`` tokens of each row (count 0 = slot untouched).
+        Updates the pools in place and returns them."""
+        self._chunk(p, cache, tokens, start, count, block_table)
         return cache
+
+    def supports_speculative(self) -> bool:
+        """Speculative decoding rolls rejected positions back by
+        truncating block tables, so every layer's cache must be
+        position-addressed through the paged pool (the reference also
+        excludes sliding-window layers, which the port does not have)."""
+        return self.supports_paged_cache()
+
+    def verify_step(self, p, cache, tokens, start, count, *, block_table):
+        """Wide verify for speculative decoding: the span writes of
+        ``prefill_step``, but returns (logits ``[B, T, V]`` fp32 for every
+        position, cache) so one call scores all k + 1 proposals."""
+        x = self._chunk(p, cache, tokens, start, count, block_table)
+        h = apply_norm(p["final_norm"], x, self.cfg)
+        return unembed(h, self._head_table(p), self.cfg), cache
 
     def decode_step(self, p, cache, token, pos, *, block_table):
         """token ``[B, 1]``; pos ``[B]`` per-slot positions.  Returns

@@ -2,9 +2,10 @@
 engine's checks read the same.
 
 The port has no Session: a ``ServingPolicy`` is passed to the engine
-directly.  Prefix sharing and speculative decoding are not ported yet;
-their policies are kept (off by default) and the engine refuses them
-when enabled.
+directly.  Speculative decoding is ported with the n-gram proposer (or
+one the caller passes); ``draft="model"`` is refused.  Prefix sharing
+is not ported yet: its policy is kept (off by default) and the engine
+refuses it when enabled.
 """
 
 from __future__ import annotations
@@ -72,8 +73,11 @@ class ServingPolicy:
         ``"caching"`` or ``"bump"`` (``core/memory/manager.py``).
     prefill_chunk:
         prompt tokens consumed per prefill call (must be > 0).
-    prefix / speculative:
+    prefix:
         kept for parity with the reference; must stay disabled.
+    speculative:
+        draft-propose / wide-verify / rollback rounds of up to ``k``
+        proposals; ``draft="ngram"`` only.
     """
 
     cache: str = "paged"

@@ -10,9 +10,19 @@ its blocks are freed and the request is requeued, recomputed on
 re-admission.  Greedy argmax runs on the device; each decode step makes
 one host sync, to read the new tokens.
 
-Not ported yet: the dense cache, prefix sharing, speculative decoding,
-beam forks and observability.  Models whose layers carry SSM recurrent
-state, and MLA models, are refused as in the reference.
+With ``ServingPolicy.speculative`` on (and a model whose
+``supports_speculative()`` is true) each step is one draft-propose /
+wide-verify / rollback round instead (``_spec_step``): a proposer
+guesses up to k tokens per slot, one ``verify_step`` scores them all,
+the longest prefix matching the greedy targets is accepted plus one
+bonus token, and the rejected suffix's blocks are freed.  The output is
+token-for-token that of one-token decode.
+
+Not ported yet: the dense cache, prefix sharing, draft-model proposals,
+beam forks, observability, and the KV audit after releases
+(``_audit_kv``, which needs the analysis package: ROADMAP.md queue 1
+item 8).  Models whose layers carry SSM recurrent state, and MLA models,
+are refused as in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from repro_torch.runtime.policies import ServingPolicy
 
 from .kv_cache import OutOfMemory, PagedKVCache
 from .scheduler import make_scheduler
+from .speculative import make_proposer
 
 
 @dataclass
@@ -50,7 +61,7 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model, params, *, batch_slots: int, max_seq: int,
-                 policy: ServingPolicy | None = None):
+                 policy: ServingPolicy | None = None, proposer=None):
         self.model = model
         self.params = params
         self.slots = batch_slots
@@ -75,8 +86,6 @@ class ServeEngine:
                 "latent caches are dense-only for now)")
         if self.policy.prefix.enabled:
             raise NotImplementedError("prefix sharing is not ported")
-        if self.policy.speculative.enabled:
-            raise NotImplementedError("speculative decoding is not ported")
         if self.policy.prefill_chunk <= 0 or not getattr(
                 model, "supports_chunked_prefill", lambda: False)():
             raise NotImplementedError(
@@ -86,6 +95,14 @@ class ServeEngine:
                                num_blocks=self.policy.num_blocks,
                                manager=self.policy.allocator)
         self.cache = self.kv.pools
+        # speculation needs a model whose caches all roll back by
+        # block-table truncation; otherwise it degrades to plain decode
+        self.spec_on = (self.policy.speculative.enabled and getattr(
+            model, "supports_speculative", lambda: False)())
+        self.proposer = None
+        if self.spec_on:
+            self.proposer = (proposer if proposer is not None
+                             else make_proposer(self.policy.speculative))
         self.scheduler = make_scheduler(self.policy.scheduler)
         self.active: dict[int, Request] = {}     # slot -> request
         self.slot_pos = np.zeros(batch_slots, np.int32)
@@ -95,6 +112,11 @@ class ServeEngine:
         self.prefill_calls = 0
         self.preemptions = 0
         self._admit_counter = 0
+        self.spec_rounds = 0
+        self.slot_rounds = 0     # (slot, round) verify instances
+        self.verify_calls = 0
+        self.accepted_tokens = 0
+        self.rejected_tokens = 0
 
     # -- device steps --------------------------------------------------------
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -104,6 +126,15 @@ class ServeEngine:
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._to_device(tok),
             self._to_device(pos), block_table=self.kv.device_table())
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _verify(self, toks: np.ndarray, start: np.ndarray,
+                count: np.ndarray) -> torch.Tensor:
+        """Wide verify: greedy targets ``[B, T]`` for every position."""
+        logits, self.cache = self.model.verify_step(
+            self.params, self.cache, self._to_device(toks),
+            self._to_device(start), self._to_device(count),
+            block_table=self.kv.device_table())
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     # -- request lifecycle ---------------------------------------------------
@@ -185,16 +216,27 @@ class ServeEngine:
         req.preemptions += 1
         self.preemptions += 1
         self.kv.release(slot)
+        if self.spec_on:
+            self.proposer.release(slot)
         self.scheduler.requeue(req)
 
-    def _ensure_capacity(self) -> None:
-        """Every active slot must be able to write its next position;
-        when the pool runs dry, evict scheduler-chosen victims (their
-        blocks free, the requests requeue and recompute later)."""
+    def _ensure_capacity(self, widths: dict[int, int] | None = None) -> None:
+        """Every active slot must be able to write its next position, or
+        in a speculative round its ``widths[slot]`` positions from there
+        (declared as a write intent before the growth); when the pool
+        runs dry, evict scheduler-chosen victims (their blocks free, the
+        requests requeue and recompute later)."""
         for slot in sorted(self.active):
             while slot in self.active:
+                lo = int(self.slot_pos[slot])
+                hi = lo if widths is None else lo + widths[slot] - 1
                 try:
-                    self.kv.ensure(slot, int(self.slot_pos[slot]))
+                    if widths is not None:
+                        self.kv.begin_write(slot, lo, hi)
+                    self.kv.ensure(slot, hi)
+                    if widths is not None:
+                        self.cache = self.kv.prepare_write(slot, lo, hi,
+                                                           self.cache)
                     break
                 except OutOfMemory:
                     others = {s: r for s, r in self.active.items()
@@ -207,8 +249,11 @@ class ServeEngine:
 
     # -- stepping -------------------------------------------------------------
     def step(self) -> list[Request]:
-        """Admit, then advance every active slot one token; returns the
-        requests that finished."""
+        """Admit, then advance every active slot: one token in plain
+        mode, 1..k+1 tokens per slot in one speculative round; returns
+        the requests that finished."""
+        if self.spec_on:
+            return self._spec_step()
         return self._plain_step()
 
     def _plain_step(self) -> list[Request]:
@@ -238,6 +283,89 @@ class ServeEngine:
         self.steps += 1
         return finished
 
+    def _spec_step(self) -> list[Request]:
+        """One draft-propose / wide-verify / rollback round.
+
+        A slot whose last emitted token ``t`` sits at position ``p``, with
+        proposals ``d_1..d_{c-1}``, feeds ``[t, d_1..d_{c-1}]`` at
+        positions ``p..p+c-1`` (one batched forward, per-slot width via
+        ``count``) and gets greedy targets ``g_0..g_{c-1}``.  The accepted
+        prefix is the longest ``a`` with ``d_{i+1} == g_i``; the slot
+        emits ``d_1..d_a, g_a``, exactly what one-token greedy decode
+        would have emitted.  The rejected suffix's blocks roll back."""
+        for slot, _req, eff in self._admit():
+            n = len(eff) - 1
+            self.kv.set_committed(slot, n)
+            if slot not in self.kv._prepared:
+                self.kv.begin_write(slot, max(n - 1, 0), max(n - 1, 0))
+            self.proposer.admit(slot, eff)
+        if not self.active:
+            return []
+        k = self.policy.speculative.k
+        width = k + 1
+        proposals = self.proposer.propose(
+            {s: r.prompt + r.generated for s, r in self.active.items()}, k)
+        counts: dict[int, tuple[int, list[int]]] = {}
+        for s in list(self.active):
+            props = [int(t) for t in proposals.get(s, [])][:k]
+            # verify writes positions p..p+c-1; clamp inside the cache
+            c = min(len(props) + 1, width,
+                    self.max_seq - int(self.slot_pos[s]))
+            counts[s] = (c, props[:c - 1])
+        self._ensure_capacity({s: c for s, (c, _p) in counts.items()})
+        if not self.active:
+            return []
+        toks = np.zeros((self.slots, width), np.int32)
+        start = np.zeros(self.slots, np.int32)
+        count = np.zeros(self.slots, np.int32)
+        for s in self.active:
+            c, props = counts[s]
+            toks[s, :c] = ([int(self.slot_tok[s, 0])] + props)[:c]
+            start[s] = self.slot_pos[s]
+            count[s] = c
+        greedy = self._verify(toks, start, count)
+        self.verify_calls += 1
+        g = greedy.cpu().numpy()                         # the one host sync
+        self.spec_rounds += 1
+        self.slot_rounds += len(self.active)
+        now = time.perf_counter()
+        finished = []
+        accepted: dict[int, int] = {}
+        for slot, req in list(self.active.items()):
+            props = counts[slot][1]
+            a = 0
+            while a < len(props) and props[a] == int(g[slot, a]):
+                a += 1
+            emit = props[:a] + [int(g[slot, a])]
+            accepted[slot] = a
+            self.accepted_tokens += a
+            self.rejected_tokens += len(props) - a
+            p0 = int(self.slot_pos[slot])
+            done = False
+            n_emit = 0
+            for t in emit:
+                self._emit_token(req, t, now)
+                n_emit += 1
+                if ((req.eos_id is not None and t == req.eos_id)
+                        or len(req.generated) >= req.max_new_tokens
+                        or p0 + n_emit >= self.max_seq - 1):
+                    done = True
+                    break
+            self.slot_pos[slot] = p0 + n_emit
+            self.slot_tok[slot, 0] = emit[n_emit - 1]
+            # KV past the new position is the unwritten bonus token or
+            # rejected content: truncate it
+            self.kv.rollback(slot, p0 + n_emit)
+            if done:
+                req.done = True
+                finished.append(req)
+                del self.active[slot]
+                self.kv.release(slot)
+                self.proposer.release(slot)
+        self.proposer.commit(accepted)
+        self.steps += 1
+        return finished
+
     @staticmethod
     def _emit_token(req: Request, t: int, now: float) -> None:
         req.generated.append(t)
@@ -262,4 +390,20 @@ class ServeEngine:
                 "decode_calls": self.decode_calls,
                 "prefill_calls": self.prefill_calls,
                 "preemptions": self.preemptions,
+                "speculative": self._describe_speculative(),
                 "kv_cache": self.kv.describe()}
+
+    def _describe_speculative(self) -> dict:
+        spec = {"enabled": self.spec_on,
+                "rounds": self.spec_rounds,
+                "slot_rounds": self.slot_rounds,
+                "verify_calls": self.verify_calls,
+                "accepted_tokens": self.accepted_tokens,
+                "rejected_tokens": self.rejected_tokens,
+                # mean tokens a slot emits per verify round, in [1, k + 1]
+                "accepted_per_step": round(
+                    (self.accepted_tokens + self.slot_rounds)
+                    / max(1, self.slot_rounds), 3)}
+        if self.proposer is not None:
+            spec["proposer"] = self.proposer.describe()
+        return spec

@@ -7,7 +7,10 @@ its logical positions to physical blocks.  Physical block 0 is the
 reserved *trash* block: unmapped table entries point at it, so idle
 slots' decode writes land there harmlessly.  Block allocation goes
 through the ``core/memory`` managers, whose ``OutOfMemory`` is the
-engine's preemption trigger.
+engine's preemption trigger.  Speculative decoding declares its writes
+(``begin_write`` / ``prepare_write``) and truncates rejected spans
+(``rollback``); with no prefix sharing every block has one owner, so no
+write needs a copy-on-write.
 """
 
 from __future__ import annotations
@@ -85,6 +88,12 @@ class PagedKVCache:
                                             block_size=block_size)
         self.table = np.zeros((slots, self.max_blocks), np.int32)
         self._blocks: dict[int, list[int]] = {}     # slot -> [block id]
+        # speculative bookkeeping, as in the reference: the most recent
+        # declared write range per slot and the positions whose KV is
+        # final (the reference's KV audit reads both; it is not ported)
+        self._prepared: dict[int, tuple[int, int]] = {}
+        self._committed: dict[int, int] = {}
+        self.rollback_blocks_freed = 0
         # reserve physical block 0 as the trash block, never freed
         ptr0 = self.manager.alloc(self.block_bytes)
         if ptr0 // self.block_bytes != 0:
@@ -125,6 +134,51 @@ class PagedKVCache:
         for bid in self._blocks.pop(slot, []):
             self.manager.unlock(bid * self.block_bytes)
         self.table[slot] = 0
+        self._prepared.pop(slot, None)
+        self._committed.pop(slot, None)
+
+    # -- speculative writes and rollback -------------------------------------
+    def set_committed(self, slot: int, n: int) -> None:
+        """Positions ``[0, n)`` of ``slot`` hold final KV content."""
+        self._committed[slot] = n
+
+    def begin_write(self, slot: int, lo: int, hi: int) -> None:
+        """Declare an upcoming write to positions ``[lo, hi]`` before the
+        mapping grows to cover it."""
+        self._prepared[slot] = (lo, hi)
+
+    def prepare_write(self, slot: int, lo: int, hi: int, pools):
+        """The write barrier for positions ``[lo, hi]``: records the
+        intent and returns ``pools`` unchanged.  The reference copies a
+        block other sharers hold before a divergent write lands; without
+        prefix sharing no block has a second owner."""
+        self._prepared[slot] = (lo, hi)
+        return pools
+
+    def rollback(self, slot: int, new_len: int) -> int:
+        """Truncate ``slot`` to ``new_len`` committed positions: blocks
+        past the one holding position ``new_len - 1`` go back to the
+        memory manager and their table columns to the trash block 0.
+        Positions inside the last kept block need no cleanup: validity
+        hides them and later writes overwrite them.  Returns the number
+        of blocks freed."""
+        held = self._blocks.get(slot, [])
+        keep = 0 if new_len <= 0 else (new_len - 1) // self.block_size + 1
+        freed = 0
+        while len(held) > keep:
+            bid = held.pop()
+            self.table[slot, len(held)] = 0
+            self.manager.unlock(bid * self.block_bytes)
+            freed += 1
+        self._committed[slot] = new_len
+        if slot in self._prepared:
+            lo, hi = self._prepared[slot]
+            if lo >= new_len:
+                del self._prepared[slot]
+            elif hi >= new_len:
+                self._prepared[slot] = (lo, new_len - 1)
+        self.rollback_blocks_freed += freed
+        return freed
 
     # -- device views --------------------------------------------------------
     def device_table(self) -> BlockTable:
@@ -140,4 +194,5 @@ class PagedKVCache:
                 "blocks_in_use": self.blocks_in_use,
                 "manager": type(self.manager).__name__,
                 "device_allocs": s.n_device_allocs,
-                "internal_fragmentation": s.internal_fragmentation}
+                "internal_fragmentation": s.internal_fragmentation,
+                "rollback_blocks_freed": self.rollback_blocks_freed}

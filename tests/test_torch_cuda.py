@@ -3,7 +3,8 @@
 These tests need an NVIDIA card (sm_90a) and nvcc; elsewhere they skip.
 Run them on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
 Tolerances as in chip_smoke.py: bf16 within 2 ulps (rtol 2^-6) plus a
-small atol for the decode's fp32-vs-bf16 softmax weights; fp32 to 1e-5.
+small atol for the attention kernels' fp32-vs-bf16 softmax weights; fp32
+to 1e-5.
 """
 
 import math
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flash_verify as fv
 from repro_torch.kernels import ops, rmsnorm
 
 pytestmark = pytest.mark.gpu
@@ -110,3 +112,103 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="int32"):
         ops.paged_decode(q, pool, pool, table.long(), lengths, block_size=8,
                          scale=1.0)
+
+
+def _verify_case(gen, *, t, h, kvh, d, dtype, bs=16, mb=24):
+    """Ragged starts over a scattered table: full rows, a half row, an
+    idle row (count 0, table of zeros) and a row whose padding runs past
+    the table's last position."""
+    length = mb * bs
+    start = [0, 37, 150, 0, length - 2]
+    count = [t, max(1, t // 2), t, 0, min(t, 2)]
+    b = len(start)
+    num_blocks = b * mb + 1
+    table = torch.zeros(b, mb, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    used = 0
+    for i in range(b):
+        n = -(-(start[i] + count[i]) // bs) if count[i] else 0
+        table[i, :n] = perm[used:used + n].int()
+        used += n
+    q = _randn(gen, b, t, h, d, dtype=dtype)
+    k = _randn(gen, num_blocks * bs, kvh, d, dtype=dtype)
+    v = _randn(gen, num_blocks * bs, kvh, d, dtype=dtype)
+    ints = dict(dtype=torch.int32, device="cuda")
+    return (q, k, v, table, torch.tensor(start, **ints),
+            torch.tensor(count, **ints), bs)
+
+
+@pytest.mark.parametrize("h,kvh,d,cap", [(32, 32, 128, 0.0),
+                                         (32, 8, 128, 30.0),
+                                         (8, 2, 64, 0.0), (4, 4, 256, 0.0),
+                                         (4, 1, 32, 5.0)])
+@pytest.mark.parametrize("t", [1, 5, 16, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_verify_kernel_matches_plain(gen, h, kvh, d, cap, t, dtype):
+    q, k, v, table, start, count, bs = _verify_case(
+        gen, t=t, h=h, kvh=kvh, d=d, dtype=dtype)
+    kw = dict(block_size=bs, scale=1 / math.sqrt(d), cap=cap)
+    before = fv.launches
+    got = ops.paged_verify(q, k, v, table, start, count, **kw)
+    torch.cuda.synchronize()
+    assert fv.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, fv.paged_plain(q, k, v, table, start, count, **kw),
+        **TOL[dtype])
+    padding = (torch.arange(t, device="cuda")[None, :]
+               >= count[:, None])
+    assert not got[padding].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_verify_t1_equals_paged_decode(gen, dtype):
+    q, k, v, table, start, count, bs = _verify_case(
+        gen, t=1, h=32, kvh=8, d=128, dtype=dtype)
+    count = torch.ones_like(count)
+    kw = dict(block_size=bs, scale=1 / math.sqrt(128))
+    wide = ops.paged_verify(q, k, v, table, start, count, **kw)
+    narrow = ops.paged_decode(q[:, 0].contiguous(), k, v, table, start + 1,
+                              **kw)
+    torch.testing.assert_close(wide[:, 0], narrow, **TOL[dtype])
+
+
+def test_flash_verify_contiguous_entry_matches_plain(gen):
+    n, t, s, d = 4, 5, 512, 128
+    q = _randn(gen, n, t, d, dtype=torch.bfloat16)
+    k = _randn(gen, n, s, d, dtype=torch.bfloat16)
+    v = _randn(gen, n, s, d, dtype=torch.bfloat16)
+    starts = torch.tensor([1, 40, 100, s - t], device="cuda")
+    valid = (torch.arange(s, device="cuda")[None, None, :]
+             <= starts[:, None, None]
+             + torch.arange(t, device="cuda")[None, :, None])
+    valid[2, 3] = False                      # a row with no valid key
+    got = ops.flash_verify(q, k, v, valid)
+    torch.testing.assert_close(got, fv.contiguous_plain(q, k, v, valid),
+                               **TOL[torch.bfloat16])
+    assert not got[2, 3].any()
+
+
+def test_verify_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    q, k, v, table, start, count, bs = _verify_case(
+        gen, t=5, h=4, kvh=2, d=64, dtype=torch.bfloat16)
+    kw = dict(block_size=bs, scale=1.0)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_verify(q, k, v, table, start.long(), count, **kw)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.paged_verify(q.float(), k, v, table, start, count, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_verify(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                         v, table, start, count, **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.paged_verify(q, k, v, table, start.cpu(), count, **kw)
+    with pytest.raises(ValueError, match="heads over"):
+        ops.paged_verify(q[:, :, :3].contiguous(), k, v, table, start, count,
+                         **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_verify(_randn(gen, 5, 5, 4, 48), _randn(gen, 16, 2, 48),
+                         _randn(gen, 16, 2, 48), table, start, count, **kw)
+    with pytest.raises(ValueError, match="valid"):
+        ops.flash_verify(q[:, :, 0], k[:40].view(5, 8, 2, 64)[:, :, 0],
+                         k[:40].view(5, 8, 2, 64)[:, :, 0],
+                         torch.ones(5, 5, 7, dtype=torch.bool, device="cuda"))

@@ -67,7 +67,8 @@ def test_engine_tokens_identical_to_reference(models, num_blocks, scheduler):
 def test_engine_refuses_what_is_not_ported(models):
     _, _, tm, tp = models
     for policy in (ServingPolicy(cache="dense"), ServingPolicy(prefix=True),
-                   ServingPolicy(speculative=True),
+                   ServingPolicy(speculative={"enabled": True,
+                                              "draft": "model"}),
                    ServingPolicy(prefill_chunk=0)):
         with pytest.raises(NotImplementedError):
             ServeEngine(tm, tp, batch_slots=2, max_seq=32, policy=policy)
