@@ -4,11 +4,14 @@
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. print the card's name and power limit; build the three CUDA kernels
+  1. print the card's name and power limit; build the four CUDA sources
      from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the serving path gives it (paged_verify at a
-     prefill chunk, T=128, and at a speculative verify, T=5);
+     bf16, at the shapes the main paths give it (paged_verify at a
+     prefill chunk, T=128, and at a speculative verify, T=5; the
+     training kernels at B=4, S=2048, H=Kv=32, D=128, causal, and
+     rms_norm_bwd at [8192, 4096]; plus a GQA and a window + softcap
+     attention shape for correctness);
   3. time each kernel, its plain version and one PyTorch call for the
      same function (a yardstick the port never calls);
   4. serve codeqwen1.5-7b at full width (random weights from --seed,
@@ -16,10 +19,16 @@ Phases, each of which raises (non-zero exit) on failure:
      prompts of 128..1024 tokens and 64 new tokens each, counting every
      kernel launch of that run; then the same requests again with
      speculative decoding on (n-gram proposer, k=4), counting again;
+     then train codeqwen1.5-7b at full width, depth cut from 32 to 4
+     layers, for 16 AdamW steps of batch 4 x 2048 tokens through
+     ``repro_torch.training.train`` (remat "full", flash attention),
+     counting launches again, and restore its checkpoint bit for bit;
   5. hold the card's first decode logits and verify logits of a 2-layer
      full-width model against the port on the CPU (plain versions, fp32
-     from the same bf16 weights), and check that the speculative engine
-     emits the plain engine's tokens on the card (2 layers, fp32).
+     from the same bf16 weights), and the loss and three gradients of a
+     training batch likewise; check that ``LM.forward`` runs the
+     flash-attention kernel, and that the speculative engine emits the
+     plain engine's tokens on the card (2 layers, fp32).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script exits non-zero and
@@ -57,6 +66,34 @@ VERIFY_TOL = DECODE_TOL
 # logits have a spread of ~1.3; bf16 rounding through two layers and the
 # bf16-rounded unembedding stays well inside 0.1.
 LOGITS_ATOL = 0.1
+# flash attention in bf16 against its plain version, which rounds P (and,
+# in the backward, dS) to bf16 before the products that take them, as the
+# kernels do: the two differ in summation order and where such a rounding
+# flips, about one bf16 ulp (2^-8) of a few entries.  Outputs are
+# averages of ~N(0,1) values, ~0.03 at late rows and keys, so an absolute
+# tolerance alone would pass a zeroed tile.  Each of o, dq, dk, dv is
+# held by its relative L2 error (ATTN_REL_TOL) and each of its rows (one
+# position and head, D values) by the row's L2 error over its norm plus
+# 1 % of the median row norm (ATTN_ROW_TOL; dQ of position 0 is ~0), so
+# an error confined to a few late query or key tiles fails.  The forward
+# is also held elementwise, as decode.  rms_norm dw sums 8192 rows in
+# fp32 partials: one bf16 ulp (2^-7) plus 1e-3.
+ATTN_TOL = DECODE_TOL
+ATTN_REL_TOL = 1e-2
+ATTN_ROW_TOL = 5e-2
+DW_TOL = (1e-3, 2.0 ** -7)
+# the softcap shape uses cap 2 on ~N(0,1) scores, where tanh is far from
+# linear; its plain output and gradients must differ from the uncapped
+# ones by more than ten times ATTN_REL_TOL, or the check could not see a
+# kernel that ignored the cap or its derivative.
+SOFTCAP = 2.0
+# 2-layer full-width training batch, card bf16 vs CPU fp32 on the same
+# bf16 weights: a dozen bf16 roundings of 2^-9 relative on the way
+# through two layers forward and back add up to ~1 %; the loss (~11.4)
+# to 0.05 absolute and each gradient's relative L2 error to 0.05.
+TRAIN_LOSS_ATOL = 0.05
+TRAIN_GRAD_RTOL = 0.05
+H100_PEAK = "989 TFLOP/s bf16 dense (H100 SXM data sheet)"
 # token identity, speculative vs plain engine on the card in fp32: the
 # two paths sum in other orders (5-row vs 1-row matmuls, the verify vs
 # the decode kernel), which moves fp32 logits of spread ~1.3 by ~1e-5;
@@ -82,12 +119,24 @@ def check_close(name: str, got, want, atol: float, rtol: float) -> float:
     return float(err.max())
 
 
-def time_ms(fn, iters: int = 20, replays: int = 10) -> float:
+def time_ms(fn, iters: int = 20, replays: int = 10,
+            graph: bool = True) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph,
     replayed ``replays`` times between CUDA events, so host overhead
-    does not hide the device time of a small kernel."""
+    does not hide the device time of a small kernel.  ``graph=False``
+    times ``iters * replays`` plain calls between the events instead,
+    for calls of milliseconds whose temporaries are large."""
     fn()
     torch.cuda.synchronize()
+    if not graph:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters * replays):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (iters * replays)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -124,7 +173,8 @@ def build_kernels() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build(["rmsnorm", "flash_decode", "flash_verify"])
+    paths = build.build(["rmsnorm", "flash_decode", "flash_verify",
+                         "flash_attention"])
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -380,6 +430,173 @@ def verify_checks(gen) -> dict:
             "at_verify_shape": out["verify"]}
 
 
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rms_norm_bwd")
+TRAIN_SHAPE = dict(b=4, s=2048, h=32, kv=32, d=128)
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(relative L2 error of the whole tensor, worst row's L2 error over
+    its norm plus 1 % of the median row norm); rows run along the last
+    dimension."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    diff = (got - want).norm(dim=-1)
+    norm = want.norm(dim=-1)
+    return (float(diff.norm() / norm.norm()),
+            float((diff / (norm + 0.01 * norm.median())).max()))
+
+
+def check_rel(name: str, got, want) -> tuple[float, float]:
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values from the kernel")
+    whole, row = rel_err(got, want)
+    if not (whole <= ATTN_REL_TOL and row <= ATTN_ROW_TOL):
+        raise AssertionError(
+            f"{name}: relative L2 error {whole:.3e} (limit {ATTN_REL_TOL}), "
+            f"worst row {row:.3e} (limit {ATTN_ROW_TOL})")
+    return whole, row
+
+
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a causal / window mask admits in one head."""
+    t = torch.arange(s)
+    lo = (t - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(t)
+    hi = t if causal else torch.full_like(t, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+def training_kernel_checks(gen) -> list[dict]:
+    """Phase 2 and 3 for the training kernels: flash_attention forward
+    and backward at the training shape (B=4, S=2048, H=Kv=32, D=128,
+    causal), a GQA shape and a window + softcap shape (correctness
+    only), and rms_norm_bwd at [8192, 4096]; each timed beside its
+    bound, its plain version and one PyTorch call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, rmsnorm
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16).cuda()
+
+    def attn_case(b, s, h, kv, d, **kw):
+        q, k, v, do = bf16(b, s, h, d), bf16(b, s, kv, d), bf16(b, s, kv, d), \
+            bf16(b, s, h, d)
+        kw = dict(kw, scale=1 / math.sqrt(d))
+        o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+        tag = f"[{b},{s},{h},{d}] kv={kv} {kw}"
+        err = check_close(f"flash_attention {tag}", o, want_o, *ATTN_TOL)
+        rels = [check_rel(f"flash_attention {tag}", o, want_o)]
+        check_close(f"flash_attention lse {tag}", lse, want_lse, 1e-3, 1e-5)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        names = ("dq", "dk", "dv")
+        rels += [check_rel(f"flash_attention_bwd {n} {tag}", g, w)
+                 for n, g, w in zip(names, got, want)]
+        gerr = max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want))
+        if kw.get("cap"):
+            kw0 = dict(kw, cap=0.0)
+            o0, lse0 = fa.flash_attention_plain(q, k, v, **kw0)
+            want0 = fa.flash_attention_bwd_plain(q, k, v, o0, lse0, do, **kw0)
+            gaps = {n: rel_err(w0, w)[0] for n, w0, w in
+                    zip(("o",) + names, (o0,) + want0, (want_o,) + want)}
+            log(f"[check] softcap {kw['cap']}: relative L2 distance of the "
+                f"capped from the uncapped plain outputs {gaps}")
+            if min(gaps.values()) <= 10 * ATTN_REL_TOL:
+                raise AssertionError(f"softcap {kw['cap']} moves the "
+                                     f"function too little: {gaps}")
+            del o0, lse0, want0
+        log(f"[check] flash_attention {tag}: relative L2 error / worst row "
+            + ", ".join(f"{n} {w:.2e} / {r:.2e}"
+                        for n, (w, r) in zip(("o",) + names, rels)))
+        del want_o, want_lse, got, want
+        torch.cuda.empty_cache()
+        return (q, k, v, o, lse, do, kw), err, gerr
+
+    b, s, h, kv, d = (TRAIN_SHAPE[x] for x in ("b", "s", "h", "kv", "d"))
+    (q, k, v, o, lse, do, kw), f_err, b_err = attn_case(b, s, h, kv, d,
+                                                        causal=True)
+    g_errs = attn_case(2, 1024, 32, 8, 128, causal=True)[1:]
+    w_errs = attn_case(2, 512, 8, 8, 128, causal=True, window=128,
+                       cap=SOFTCAP)[1:]
+    log(f"[check] flash_attention bf16 max abs err {f_err:.3e}, backward "
+        f"{b_err:.3e} at [4,2048,32,128] causal; GQA (Kv=8) {g_errs[0]:.3e} "
+        f"/ {g_errs[1]:.3e}; window 128 + softcap {SOFTCAP} "
+        f"{w_errs[0]:.3e} / {w_errs[1]:.3e}")
+
+    pairs = attention_pairs(s, True, 0) * b * h
+    io = q.numel() * 2
+    shape = f"q,k,v[4,2048,32,128] bf16 causal ({pairs} attended pairs)"
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kw_sdpa = dict(is_causal=True, scale=kw["scale"])
+    fwd_bound = bound(4 * io + lse.numel() * 4, 4 * d * pairs)
+    rows = [{
+        "name": "flash_attention", "route": "cuda", "source": fa.SOURCE,
+        "replaces": fa.REPLACES, "shape": shape, "max_abs_err": f_err,
+        "ms": time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw),
+                      iters=5, replays=2, graph=False),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                            iters=2, replays=1, graph=False),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **kw_sdpa), iters=5, replays=2, graph=False)}]
+
+    def sdpa_fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves, **kw_sdpa)
+        return torch.autograd.grad(out, leaves, dot)
+
+    # FlashAttention-2's count: S, dP, dV, dQ, dK = 5 products of 2D each
+    bwd_bound = bound(5 * io + 3 * io + lse.numel() * 4, 10 * d * pairs)
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": fa.SOURCE,
+        "replaces": fa.REPLACES, "shape": shape + ", dO bf16",
+        "max_abs_err": b_err,
+        "ms": time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **kw),
+                      iters=3, replays=2, graph=False),
+        "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), iters=1, replays=1, graph=False),
+        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+        "library_ms": time_ms(sdpa_fwd_bwd, iters=3, replays=2,
+                              graph=False),
+        "library": "F.scaled_dot_product_attention forward + backward"})
+    del q, k, v, o, lse, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    # rms_norm backward at the training batch's rows
+    x, dy = bf16(8192, 4096), bf16(8192, 4096)
+    w = (1 + 0.1 * torch.randn(4096, generator=gen)).to(torch.bfloat16).cuda()
+    dx, dw = ops.rms_norm_bwd(x, w, dy)
+    want_dx, want_dw = rmsnorm.bwd_plain(x, w, dy)
+    r_err = max(check_close("rms_norm_bwd dx", dx, want_dx, *RMS_TOL),
+                check_close("rms_norm_bwd dw", dw, want_dw, *DW_TOL))
+    log(f"[check] rms_norm_bwd bf16 [8192,4096] max abs err {r_err:.3e}")
+    library_ms = None
+    fused = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+    if fused is not None:
+        _, rstd = torch.ops.aten._fused_rms_norm(x, [4096], w, 1e-6)
+        library_ms = time_ms(lambda: fused(dy, x, [4096], rstd, w,
+                                           [True, True]))
+    rb = bound(3 * x.numel() * 2 + 2 * w.numel() * 2, 10 * x.numel())
+    rows.append({
+        "name": "rms_norm_bwd", "route": "cuda", "source": rmsnorm.SOURCE,
+        "replaces": rmsnorm.REPLACES, "shape": "x, dy [8192,4096] bf16",
+        "max_abs_err": r_err,
+        "ms": time_ms(lambda: ops.rms_norm_bwd(x, w, dy)),
+        "plain_ms": time_ms(lambda: rmsnorm.bwd_plain(x, w, dy), iters=5,
+                            replays=2, graph=False),
+        "bound_ms": rb[0], "bound_by": rb[1], "library_ms": library_ms,
+        "library": "aten._fused_rms_norm_backward"})
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        log(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.5f} ms, "
+            f"plain {r['plain_ms']:.5f} ms, library {lib} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return rows
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def full_width_model(seed: int):
@@ -469,10 +686,14 @@ def serve(model, params, seed: int, *, speculative: bool,
     n_decode = engine.decode_calls - calls0[1]
     n_verify = engine.verify_calls - calls0[2]
     n_rounds = engine.spec_rounds - calls0[3]
-    path = ("rms_norm", "paged_verify") if speculative else tuple(counts)
+    path = (("rms_norm", "paged_verify") if speculative
+            else ("rms_norm", "paged_decode", "paged_verify"))
     for name in path:
         if counts[name] == 0:
             raise AssertionError(f"{tag}: kernel {name} was never launched")
+    if any(counts[name] for name in TRAIN_KERNELS):
+        raise AssertionError(f"{tag}: serving launched a training kernel: "
+                             f"{counts}")
     if counts["paged_verify"] != cfg.n_layers * (n_prefill + n_verify):
         raise AssertionError(
             f"{tag}: {counts['paged_verify']} paged_verify launches for "
@@ -548,7 +769,26 @@ def profile_serve(engine, reqs, steps: int) -> None:
     engine.run_until_done()
 
 
-def report_profile(prof, label: str, n: int, wall_us: float) -> None:
+def kernel_group(name: str) -> str:
+    """A device kernel's group by its name: the port's kernels, cuBLAS
+    matmuls, PyTorch's elementwise / copy / reduction kernels, the rest."""
+    if "fa_fwd" in name or "fa_bwd" in name:
+        return "flash attention (port)"
+    if "paged_" in name:
+        return "paged attention (port)"
+    if "rmsnorm" in name:
+        return "rms_norm (port)"
+    if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma", "cublas")):
+        return "matmul (cuBLAS)"
+    if "at::native" in name:
+        return "elementwise, copies, reductions (PyTorch)"
+    return "other"
+
+
+def report_profile(prof, label: str, n: int, wall_us: float,
+                   detail: bool = True) -> float:
+    """Print the window's device busy time and, with ``detail``, its
+    kernels and host ops by time; returns the busy microseconds."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -560,10 +800,20 @@ def report_profile(prof, label: str, n: int, wall_us: float) -> None:
     busy = sum(dev_us(e) for e in kernels)
     if not busy:
         log(f"[profile] {label}: the profiler reported no device time")
-        return
+        return 0.0
     log(f"[profile] {label}: {wall_us / n:.0f} us/step on the host clock, "
         f"device busy {busy / n:.0f} us/step "
         f"({100 * busy / wall_us:.1f} % of the window)")
+    groups: dict[str, list] = {}
+    for e in kernels:
+        g = groups.setdefault(kernel_group(e.key), [0.0, 0])
+        g[0] += dev_us(e)
+        g[1] += e.count
+    for name, (us, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile]   group {name}: {us / n:9.1f} us/step "
+            f"({100 * us / busy:.1f} % of busy), {count / n:.0f} launches/step")
+    if not detail:
+        return busy
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"[profile]   {dev_us(e) / n:9.1f} us/step  "
             f"{e.count // n:4d} launches/step  {e.key[:90]}")
@@ -575,6 +825,155 @@ def report_profile(prof, label: str, n: int, wall_us: float) -> None:
                     reverse=True)[:10]:
         log(f"[profile]   {e.self_cpu_time_total / n:9.1f} us/step  "
             f"{e.count // n:4d} calls/step  {e.key[:90]}")
+    return busy
+
+
+TRAIN_LAYERS = 4       # codeqwen1.5-7b has 32; cut so AdamW state fits
+# AdamW at lr 1e-3 after a 2-step warmup lifts the loss of this random
+# full-width model from 12.2 to ~21 by step 4 before it falls (8 steps end
+# at 11.1, 16 steps at ~5.7), so the run takes 16 steps for the loss to
+# show it learns.
+TRAIN_STEPS = 16
+CKPT_DIR = ROOT / ".smoke_ckpt"   # listed in .gitignore; removed after use
+
+
+def train_config(layers: int):
+    from repro_torch.configs import get_config
+
+    return get_config("codeqwen1.5-7b").with_(
+        n_layers=layers, attention_impl="pallas", remat="full")
+
+
+def model_flops(cfg, params, b: int, s: int) -> float:
+    """Model flops of one training step: 6 N per token for the N
+    parameters of every matmul (all but the embedding table, which is a
+    lookup), plus attention's 3 x 4 D per attended pair per head (forward
+    QK^T and PV, backward twice that); remat's recompute not counted."""
+    from repro_torch.models.meta import tree_leaves
+
+    n = sum(p.numel() for p in tree_leaves(params)) - params["embed"].numel()
+    attn = (3 * 4 * cfg.resolved_head_dim * attention_pairs(s, True, 0)
+            * b * cfg.n_heads * cfg.n_layers)
+    return 6.0 * n * b * s + attn
+
+
+def train_phase(seed: int, profile_steps: int) -> dict[str, int]:
+    """Train 4-layer full-width codeqwen1.5-7b for 16 steps through
+    ``repro_torch.training.train`` (AdamW lr 1e-3, cosine warmup 2, clip
+    1.0, remat "full", flash attention, batch 4 x 2048 from the ported
+    ``make_batches``), counting kernel launches of that run; then
+    restore the run's checkpoint into a fresh model bit for bit, and
+    profile two more steps.  Returns the launches of the run."""
+    import shutil
+
+    from repro_torch.core.optim import AdamW
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import LM
+    from repro_torch.models.meta import tree_leaves
+    from repro_torch.training import CheckpointManager, TrainConfig, train
+    from repro_torch.training.train_loop import make_step_fn
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    cfg = train_config(TRAIN_LAYERS)
+    model = LM(cfg)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(f"[train] {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, kv "
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16), "
+        f"depth cut from 32 to {cfg.n_layers} layers: {n_params / 1e9:.3f} B "
+        f"params; random weights from seed {seed}")
+    batches = list(make_batches(cfg, b, s, TRAIN_STEPS + 2, seed=seed))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, base_lr=1e-3, warmup=2,
+                       grad_clip=1.0, checkpoint_dir=str(CKPT_DIR),
+                       checkpoint_every=10 ** 9, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, hist = train(model, params, iter(batches[:TRAIN_STEPS]), tcfg,
+                         optimizer=AdamW(lr=1e-3), log_fn=log)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses {losses}")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    per_step = {"flash_attention": 2 * cfg.n_layers,     # forward + remat
+                "flash_attention_bwd": cfg.n_layers,
+                "rms_norm": 2 * (2 * cfg.n_layers) + 1,  # final norm once
+                "rms_norm_bwd": 2 * cfg.n_layers + 1,
+                "paged_decode": 0, "paged_verify": 0}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    flops = model_flops(cfg, params, b, s)
+    steady = [h["sec"] for h in hist[2:]]
+    step_s = sum(steady) / len(steady)
+    for h in hist:
+        log(f"[train] step {h['step']}: {1e3 * h['sec']:.1f} ms, "
+            f"{b * s / h['sec']:.1f} tokens/s, loss {h['loss']:.4f}")
+    log(f"[train] steps 2..{TRAIN_STEPS - 1}: {1e3 * step_s:.2f} ms per step, "
+        f"{b * s / step_s:.1f} tokens/s, MFU {100 * flops / step_s / BF16_FLOPS:.2f} % "
+        f"({flops / 1e12:.2f} TFLOP of model flops per step over {H100_PEAK}); "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"[train] launches per step {per_step} (x {TRAIN_STEPS} steps)")
+
+    # the run's checkpoint, restored into a fresh model
+    ckpt = CheckpointManager(CKPT_DIR)
+    fresh = LM(cfg).init(seed + 1)
+    t0 = time.perf_counter()
+    (restored, state), extra = ckpt.restore(
+        (fresh, AdamW(lr=1e-3).init(fresh)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b_) for a, b_ in
+               zip(tree_leaves(restored), tree_leaves(params)))
+    if extra.get("step") != TRAIN_STEPS or not same:
+        raise AssertionError(f"train: checkpoint step {extra} or parameters "
+                             "differ from the trained ones")
+    log(f"[train] checkpoint of step {extra['step']} restored into a fresh "
+        f"model bit for bit ({time.perf_counter() - t0:.1f} s)")
+    del fresh, restored, state
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    # device busy share: two more steps under the profiler
+    opt = AdamW(lr=1e-3)
+    step_fn = make_step_fn(model, opt, tcfg)
+    state = opt.init(params)
+    profile_train(step_fn, params, state, batches[TRAIN_STEPS:], step_s,
+                  model.device, detail=profile_steps > 0)
+    return counts
+
+
+def profile_train(step_fn, params, state, batches, step_s, device,
+                  detail: bool) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.device import host_to_device
+
+    dev_batches = [{k: host_to_device(v, device) for k, v in b.items()}
+                   for b in batches]
+    step_fn(params, state, 0, dev_batches[0])     # outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(dev_batches):
+            _, _, m = step_fn(params, state, 1 + i, batch)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = len(dev_batches)
+    busy = report_profile(prof, f"{n} training steps", n, wall_us,
+                          detail=detail)
+    if busy:
+        log(f"[train] device busy {busy / n / 1e3:.2f} ms per step: "
+            f"{100 * busy / n / 1e6 / step_s:.1f} % of an unprofiled step "
+            f"({1e3 * step_s:.2f} ms)")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -632,11 +1031,79 @@ def logits_parity(seed: int) -> float:
     return err
 
 
+def train_parity(seed: int) -> dict[str, int]:
+    """A 2-layer full-width training batch (B=1, S=256): the card in bf16
+    against the port on the CPU in fp32 from the same bf16 weights, on
+    the loss and the gradients of ``final_norm.scale``, the last layer's
+    ``wo`` and the batch's embedding rows.  Also counts the launches of
+    one ``LM.forward`` on the card, which must run flash attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.meta import tree_leaves, tree_map
+
+    cfg = train_config(2)
+    gpu = LM(cfg)
+    params = gpu.init(seed)
+    rng = torch.Generator().manual_seed(seed + 4)
+    tokens = torch.randint(cfg.vocab_size, (1, 256), generator=rng)
+    batch = {"tokens": tokens,
+             "labels": torch.randint(cfg.vocab_size, (1, 256), generator=rng)}
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _, _ = gpu.forward(params, tokens)
+    torch.cuda.synchronize()
+    forward = ops.launch_counts()
+    if (forward["flash_attention"] != cfg.n_layers
+            or forward["paged_decode"] or forward["paged_verify"]
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"LM.forward on the card: launches {forward}")
+    log(f"[parity] LM.forward on the card: launches {forward}")
+    del logits
+
+    def grads(model, p):
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        loss, _ = model.loss_fn(p, batch)
+        loss.backward()
+        out = [float(loss.detach()), p["final_norm"]["scale"].grad,
+               p["stages"][0]["attn"]["wo"].grad[-1],
+               p["embed"].grad[tokens[0].to(p["embed"].device)]]
+        return [out[0]] + [g.float().cpu() for g in out[1:]]
+
+    card = grads(gpu, params)
+    cpu_params = tree_map(lambda t: t.detach().float().cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = grads(LM(cfg.with_(param_dtype=torch.float32,
+                             compute_dtype=torch.float32), device="cpu"),
+                cpu_params)
+    host_s = time.perf_counter() - t0
+    loss_err = abs(card[0] - ref[0])
+    log(f"[parity] 2-layer full-width training batch [1,256]: loss card "
+        f"{card[0]:.5f} vs CPU {ref[0]:.5f} (|diff| {loss_err:.5f}, limit "
+        f"{TRAIN_LOSS_ATOL}); CPU reference {host_s:.1f} s")
+    bad = loss_err > TRAIN_LOSS_ATOL or not math.isfinite(card[0])
+    for name, c, r in zip(("final_norm.scale", "stages[0].attn.wo[-1]",
+                           "embed[tokens]"), card[1:], ref[1:]):
+        rel = float((c - r).norm() / r.norm())
+        log(f"[parity]   grad {name} {tuple(c.shape)}: relative L2 error "
+            f"{rel:.4f} (limit {TRAIN_GRAD_RTOL}), norm {float(r.norm()):.4e}")
+        bad = bad or not rel <= TRAIN_GRAD_RTOL
+    if bad:
+        raise AssertionError("parity: the card's training batch disagrees "
+                             "with the CPU")
+    return forward
+
+
 def token_identity(seed: int) -> None:
     """Plain and speculative engines on a 2-layer full-width fp32 model
     on the card emit the same tokens, but where the plain run's top two
-    logits are within MARGIN_BOUND."""
+    logits are within MARGIN_BOUND (read from the port's forward on the
+    CPU in fp32, from the same weights)."""
     from repro_torch.models import LM
+    from repro_torch.models.meta import tree_map
     from repro_torch.runtime import ServingPolicy
     from repro_torch.serving import ServeEngine
 
@@ -663,7 +1130,7 @@ def token_identity(seed: int) -> None:
                 f"calls, {d['accepted_tokens']} accepted, "
                 f"{d['rejected_tokens']} rejected, decode_calls "
                 f"{engine.decode_calls}")
-    diverged = 0
+    diverged, cpu = 0, None
     for uid, (prompt, plain) in streams[False].items():
         spec = streams[True][uid][1]
         i = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b),
@@ -674,8 +1141,11 @@ def token_identity(seed: int) -> None:
                                      f"{len(spec)} tokens, not {len(plain)}")
             continue
         diverged += 1
-        logits, _, _ = model.forward(params,
-                                     torch.tensor([prompt + plain[:i]]))
+        if cpu is None:   # the flash-attention kernels take bf16 only
+            cpu = (LM(cfg, device="cpu"),
+                   tree_map(lambda t: t.cpu(), params))
+        logits, _, _ = cpu[0].forward(cpu[1],
+                                      torch.tensor([prompt + plain[:i]]))
         top2 = torch.topk(logits[0, -1], 2).values
         margin = float(top2[0] - top2[1])
         log(f"[identity] request {uid}: first divergence at generated "
@@ -697,7 +1167,8 @@ def main(argv=None) -> int:
                     help="after the plain serve run, trace one admission "
                          "step (the prefill chunk calls) and this many "
                          "decode steps with torch.profiler and print where "
-                         "the time goes")
+                         "the time goes; print the same breakdown of the "
+                         "two profiled training steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -706,7 +1177,8 @@ def main(argv=None) -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     build_kernels()
-    rows = kernel_checks(args.seed)
+    rows = kernel_checks(args.seed) + training_kernel_checks(
+        torch.Generator().manual_seed(args.seed + 5))
     model, params = full_width_model(args.seed)
     by_path = {"serve": serve(model, params, args.seed, speculative=False,
                               profile_steps=args.profile_steps),
@@ -714,10 +1186,15 @@ def main(argv=None) -> int:
                                     speculative=True)}
     del model, params
     torch.cuda.empty_cache()
+    by_path["train"] = train_phase(args.seed, args.profile_steps)
+    torch.cuda.empty_cache()
+    logits_parity(args.seed)
+    by_path["forward"] = train_parity(args.seed)
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-    logits_parity(args.seed)
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']}: no launch on any path")
     token_identity(args.seed)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,17 @@ class ModelConfig:
     act: str = "silu"                # silu | geglu (gated) | gelu
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
+    # multi-token prediction depth (deepseek-v3 MTP); only 0 is ported
+    mtp_depth: int = 0
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+
+    # training knobs, the reference's defaults
+    remat: str = "full"              # none | full (dots is not ported)
+    scan_layers: bool = True         # remat applies to scanned stages
+    attention_impl: str = "ref"      # ref | blockwise | pallas (the card
+                                     # runs the flash kernel for all three)
+    ce_impl: str = "dense"           # dense | chunked  (chunked = low-mem CE)
     source: str = ""                 # provenance note
 
     @property

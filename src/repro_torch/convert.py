@@ -1,10 +1,12 @@
-"""Load the reference's trees (numpy leaves) into the port.
+"""Move trees between the reference and the port.
 
-Weights and caches cross between the packages as numpy: the caller maps
-``np.asarray`` over a JAX tree and hands the result here.  The layouts
-match leaf for leaf; a stage whose layers were not scan-stacked
-(``{"r0": ..., "r1": ...}``) is stacked on a leading layer axis, the
-port's only layout.
+Weights, optimizer states and caches cross between the packages as
+numpy: the caller maps ``np.asarray`` over a JAX tree and hands the
+result here.  The layouts match leaf for leaf; a stage whose layers were
+not scan-stacked (``{"r0": ..., "r1": ...}``) is stacked on a leading
+layer axis, the port's only layout.  ``to_numpy`` goes the other way,
+with bfloat16 leaves as their raw bits in ``uint16`` (the port does not
+depend on ml_dtypes; ``.view(ml_dtypes.bfloat16)`` recovers them).
 """
 
 from __future__ import annotations
@@ -63,6 +65,27 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda",
     out = {k: v for k, v in tree.items() if k != "stages"}
     out["stages"] = _stages(tree["stages"])
     return _tree(out, dev, dtype)
+
+
+def opt_state_from_jax(tree: dict, device: str | torch.device = "cuda",
+                       dtype: torch.dtype | None = None) -> dict:
+    """Reference optimizer state (``Adam.init`` / ``apply`` over the
+    params tree: ``{"m", "v"}`` at every parameter's place) -> the port's,
+    on ``device``; stages are stacked as in ``params_from_jax``."""
+    return params_from_jax(tree, device, dtype)
+
+
+def to_numpy(tree: Any) -> Any:
+    """Any port tree (dicts, lists, tuples of tensors) as numpy, on the
+    host; bfloat16 leaves become ``uint16`` arrays of their bits."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def cache_from_jax(pools: list, device: str | torch.device = "cuda",

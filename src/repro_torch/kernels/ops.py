@@ -3,18 +3,25 @@
 A tensor on the CPU takes the kernel's plain PyTorch version; a tensor on
 a CUDA device launches the kernel or raises.  There is no fallback from
 the kernel to the plain version: an argument the kernel does not take
-is an error.  Each launch adds one to its kernel module's ``launches``.
+is an error.  Each launch adds one to its kernel's ``launches`` counter
+(``KERNELS``).  The training path reaches the kernels through two
+autograd Functions, ``rms_norm_fn`` and ``flash_attention``, whose
+backward passes are kernels too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import flash_verify as _fv
 from . import rmsnorm as _rms
 
-KERNELS = {"rms_norm": _rms, "paged_decode": _fd, "paged_verify": _fv}
+# name -> the object whose ``launches`` counts that kernel's launches
+KERNELS = {"rms_norm": _rms, "rms_norm_bwd": _rms.bwd,
+           "paged_decode": _fd, "paged_verify": _fv,
+           "flash_attention": _fa, "flash_attention_bwd": _fa.bwd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -50,29 +57,177 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+def _check_rms(name: str, x: torch.Tensor, weight: torch.Tensor) -> None:
+    d = x.shape[-1]
+    _require(x.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: x dtype {x.dtype} not float32/bfloat16")
+    _require(weight.dtype in (x.dtype, torch.float32),
+             f"{name}: weight dtype {weight.dtype} for x {x.dtype}")
+    _require(weight.shape == (d,), f"{name}: weight {tuple(weight.shape)} "
+             f"for x {tuple(x.shape)}")
+    _require(x.is_contiguous() and weight.is_contiguous(),
+             f"{name}: x and weight must be contiguous")
+    vec = 16 // x.element_size()
+    _require(d % vec == 0 and d <= _rms.max_dim(x.dtype),
+             f"{name}: D={d} must be a multiple of {vec} and at most "
+             f"{_rms.max_dim(x.dtype)}")
+    _require(_aligned(x), f"{name}: x must be 16-byte aligned")
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """x ``[..., D]``, weight ``[D]`` -> x's shape and dtype."""
     if not _on_cuda(x, weight):
         return _rms.plain(x, weight, eps)
+    _check_rms("rms_norm", x, weight)
     d = x.shape[-1]
-    _require(x.dtype in (torch.float32, torch.bfloat16),
-             f"rms_norm: x dtype {x.dtype} not float32/bfloat16")
-    _require(weight.dtype in (x.dtype, torch.float32),
-             f"rms_norm: weight dtype {weight.dtype} for x {x.dtype}")
-    _require(weight.shape == (d,), f"rms_norm: weight {tuple(weight.shape)} "
-             f"for x {tuple(x.shape)}")
-    _require(x.is_contiguous() and weight.is_contiguous(),
-             "rms_norm: x and weight must be contiguous")
-    vec = 16 // x.element_size()
-    _require(d % vec == 0 and d <= _rms.max_dim(x.dtype),
-             f"rms_norm: D={d} must be a multiple of {vec} and at most "
-             f"{_rms.max_dim(x.dtype)}")
-    _require(_aligned(x), "rms_norm: x must be 16-byte aligned")
     out = torch.empty_like(x)
     if x.numel():
         _rms.launch(x.view(-1, d), weight, out.view(-1, d), eps)
     return out
+
+
+def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RMSNorm backward: (dx in x's shape and dtype, dw ``[D]`` in
+    weight's dtype) from x, weight and the output's gradient dy."""
+    if not _on_cuda(x, weight, dy):
+        return _rms.bwd_plain(x, weight, dy, eps)
+    _require(dy.shape == x.shape and dy.dtype == x.dtype,
+             f"rms_norm_bwd: dy {dy.dtype} {tuple(dy.shape)} must match x "
+             f"{x.dtype} {tuple(x.shape)}")
+    dy = dy.contiguous()
+    _check_rms("rms_norm_bwd", x, weight)
+    _require(_aligned(dy), "rms_norm_bwd: dy must be 16-byte aligned")
+    d = x.shape[-1]
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(weight)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, dw.zero_()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(rows, 4 * sms)
+    dw_part = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    _rms.launch_bwd(x.view(-1, d), weight, dy.view(-1, d), dx.view(-1, d),
+                    dw, dw_part, eps)
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm whose forward and backward are the kernels (their plain
+    versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rms_norm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, dy, ctx.eps)
+        return dx, dw, None
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def rms_norm_fn(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable ``rms_norm``: the model's norms go through here.
+    Without a gradient to take (serving) it calls the forward directly,
+    sparing the autograd Function's host overhead."""
+    if not _needs_grad(x, weight):
+        return rms_norm(x, weight, eps)
+    return _RMSNorm.apply(x, weight, eps)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None, cap: float = 0.0):
+    """Full-sequence attention in the model layout: q ``[B, S, H, D]``,
+    k, v ``[B, S, Kv, D]`` -> (o ``[B, S, H, D]`` in q's dtype, lse
+    ``[B, H, S]`` fp32).  Query row t sees keys s <= t (causal) with
+    t - s < window (window > 0); the scale defaults to 1/sqrt(D)."""
+    scale = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if not _on_cuda(q, k, v):
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, scale=scale, cap=cap)
+    _check_flash("flash_attention", q, k, v, window)
+    b, s, h, d = q.shape
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _fa.launch_fwd(q, k, v, out, lse, causal=causal, window=window,
+                   scale=scale, cap=cap)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None,
+                        cap: float = 0.0):
+    """The gradient of ``flash_attention_fwd``'s o: (dq, dk, dv) in the
+    inputs' shapes and dtypes, from the forward's o and lse and the
+    output gradient do."""
+    scale = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if not _on_cuda(q, k, v, o, lse, do):
+        return _fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=window,
+                                             scale=scale, cap=cap)
+    _check_flash("flash_attention_bwd", q, k, v, window)
+    b, s, h, d = q.shape
+    _require(o.shape == q.shape and do.shape == q.shape
+             and o.dtype == q.dtype and do.dtype == q.dtype,
+             f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
+             f"{tuple(do.shape)} {do.dtype} must match q")
+    _require(lse.shape == (b, h, s) and lse.dtype == torch.float32
+             and lse.is_contiguous(),
+             f"flash_attention_bwd: lse must be contiguous float32 "
+             f"[{b}, {h}, {s}]")
+    o, do = o.contiguous(), do.contiguous()
+    _require(_aligned(o) and _aligned(do),
+             "flash_attention_bwd: o and do must be 16-byte aligned")
+    dq = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    di = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _fa.launch_bwd(q, k, v, o, lse, do, di, dq, dk, dv, causal=causal,
+                   window=window, scale=scale, cap=cap)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose forward and backward are the kernels (their plain
+    versions on the CPU); saves q, k, v, o and the fp32 lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, cap):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     scale=scale, cap=cap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, window=window, scale=scale, cap=cap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """The reference's signature (``repro.kernels.ops.flash_attention``):
+    q ``[B, S, H, D]``, k, v ``[B, S, Kv, D]`` (GQA grouped in the kernel,
+    no repeat) -> ``[B, S, H, D]``; differentiable (without a gradient
+    to take, only the forward runs and nothing is saved)."""
+    scale = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    if not _needs_grad(q, k, v):
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   scale=scale, cap=softcap)[0]
+    return _FlashAttention.apply(q, k, v, causal, window, scale, softcap)
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -227,3 +382,31 @@ def _check_paging(name: str, b: int, table, block_size: int,
                  and t.is_contiguous(),
                  f"{name}: {arg} must be contiguous int32 [B={b}]")
     _require(block_size >= 1, f"{name}: block_size must be >= 1")
+
+
+def _check_flash(name: str, q, k, v, window: int) -> None:
+    """q ``[B, S, H, D]``, k and v ``[B, S, Kv, D]`` in bfloat16 (the
+    kernels' one dtype, the model's training dtype), every row contiguous
+    along D and 16-byte aligned."""
+    _require(q.dtype == torch.bfloat16
+             and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"{name}: dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} must "
+             "all be bfloat16 on the card")
+    _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape
+             and k.shape[:2] == q.shape[:2] and k.shape[3] == q.shape[3],
+             f"{name}: q {tuple(q.shape)} must be [B, S, H, D] and k, v "
+             f"[B, S, Kv, D]; got k {tuple(k.shape)}, v {tuple(v.shape)}")
+    h, d = q.shape[2], q.shape[3]
+    _require(d in _fa.HEAD_DIMS,
+             f"{name}: head_dim {d} must be one of {_fa.HEAD_DIMS}")
+    _require(h % k.shape[2] == 0, f"{name}: {h} heads over {k.shape[2]} "
+             "kv heads")
+    _require(window >= 0, f"{name}: window {window} must be >= 0")
+    vec = 16 // q.element_size()
+    for t in (q, k, v):
+        _require(t.stride(3) == 1 and all(st % vec == 0
+                                          for st in t.stride()[:3]),
+                 f"{name}: q, k, v must be contiguous along D with "
+                 f"(batch, seq, head) strides in multiples of {vec}; got "
+                 f"strides {t.stride()}")
+        _require(_aligned(t), f"{name}: q, k, v must be 16-byte aligned")

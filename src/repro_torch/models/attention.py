@@ -1,6 +1,11 @@
-"""GQA attention for the serving path (``repro.models.attention``).
+"""GQA attention (``repro.models.attention``): full-sequence attention
+for training and ``forward``, and the serving path.
 
-Decode writes the new K/V into the paged pool in place and runs the
+Full-sequence attention on the card runs the flash-attention kernels
+(forward and backward, through their autograd Function) for every
+``attention_impl``; on the CPU ``ref`` and ``blockwise`` run the
+reference's masked grouped softmax and ``pallas`` runs the kernel's plain
+version.  Decode writes the new K/V into the paged pool in place and runs the
 paged flash-decode kernel; chunked prefill (and the speculative wide
 verify, which goes through it) writes the chunk into the pool and runs
 the paged flash-verify kernel.  Both kernels read K/V through the block
@@ -26,9 +31,20 @@ from .meta import ParamMeta
 
 # -- masks --------------------------------------------------------------------
 
-def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
-    """[Sq, Sk] causal boolean mask."""
-    return q_pos[:, None] >= kv_pos[None, :]
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              prefix_len: int = 0) -> torch.Tensor:
+    """[Sq, Sk] boolean mask. window>0 = sliding window; prefix positions
+    (< prefix_len) are bidirectionally visible (PaLI-style prefix-LM)."""
+    q = q_pos[:, None]
+    k = kv_pos[None, :]
+    m = (q >= k) if causal else torch.ones(
+        q_pos.shape[0], kv_pos.shape[0], dtype=torch.bool, device=q.device)
+    if window > 0:
+        m = m & (q - k < window)
+    if prefix_len > 0:
+        m = m | (k < prefix_len)
+    return m
 
 
 # -- GQA ----------------------------------------------------------------------
@@ -56,15 +72,55 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def gqa_attention(p, x, cfg, *, positions):
-    """Full-sequence attention (the ``forward`` path): the plain grouped
-    attention, in the reference ``_sdpa_ref``'s order of rounding."""
+def _sdpa_ref(q, k, v, mask, scale, cap: float = 0.0):
+    """The reference's grouped attention: q ``[B, S, H, D]``, k/v
+    ``[B, S, Kv, D]``, mask ``[Sq, Sk]`` shared by the batch."""
+    b, sq = q.shape[:2]
+    return grouped_attention_plain(q, k, v, mask.expand(b, sq, -1),
+                                   scale=scale, cap=cap)
+
+
+def _sdpa_blockwise(q, k, v, positions, *, causal, window, prefix_len,
+                    scale, cap: float = 0.0, q_chunk: int = 1024):
+    """Query-chunked attention: the score buffer is ``[B, Kv, G,
+    q_chunk, S]`` instead of O(S^2); exact (full softmax row per chunk)."""
+    s = q.shape[1]
+    while s % q_chunk != 0:
+        q_chunk //= 2
+    out = []
+    for i in range(0, s, q_chunk):
+        mask = make_mask(positions[i:i + q_chunk], positions, causal=causal,
+                         window=window, prefix_len=prefix_len)
+        out.append(_sdpa_ref(q[:, i:i + q_chunk], k, v, mask, scale, cap))
+    return torch.cat(out, 1)
+
+
+def gqa_attention(p, x, cfg, *, positions, window: int = 0,
+                  prefix_len: int = 0, causal: bool = True):
+    """Full-sequence attention (train / ``forward``) at ``positions`` =
+    0..S-1.  On the card every ``attention_impl`` runs the flash-attention
+    kernels (a prefix-LM mask is not one of the kernel's masks and
+    raises); on the CPU ``pallas`` runs their plain versions through the
+    same autograd Function, ``blockwise`` the query-chunked reference and
+    ``ref`` the reference's masked grouped softmax."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    mask = make_mask(positions, positions).expand(b, s, s)
-    out = grouped_attention_plain(
-        q, k, v, mask, scale=1.0 / math.sqrt(cfg.resolved_head_dim),
-        cap=cfg.logit_softcap)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    if x.is_cuda or (cfg.attention_impl == "pallas" and prefix_len == 0):
+        if prefix_len > 0:
+            raise NotImplementedError(
+                "gqa_attention: the flash-attention kernel takes causal and "
+                "window masks, not a prefix-LM prefix")
+        out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, softcap=cfg.logit_softcap)
+    elif cfg.attention_impl == "blockwise":
+        out = _sdpa_blockwise(q, k, v, positions, causal=causal,
+                              window=window, prefix_len=prefix_len,
+                              scale=scale, cap=cfg.logit_softcap)
+    else:
+        mask = make_mask(positions, positions, causal=causal, window=window,
+                         prefix_len=prefix_len)
+        out = _sdpa_ref(q, k, v, mask, scale, cfg.logit_softcap)
     return linear(out.reshape(b, s, -1), p["wo"])
 
 

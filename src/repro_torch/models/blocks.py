@@ -2,12 +2,17 @@
 
 Each stage keeps its parameters and caches stacked on a leading layer
 axis, the layout of the reference's ``lax.scan`` stages, and a Python
-loop over the layers replaces the scan.
+loop over the layers replaces the scan.  Under autograd a scanned stage
+checkpoints each layer as the reference's ``_remat`` does: ``remat="full"``
+saves only each layer's input and recomputes the layer in the backward.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import apply_mlp, apply_norm, mlp_meta, norm_meta
@@ -75,8 +80,28 @@ class Stage:
                           self.repeats)
 
     def apply(self, p, x, **kw):
+        """The stage's layers in order.  ``remat`` follows the
+        reference's ``_remat``, which wraps the scan body: ``"none"`` keeps
+        every activation, ``"full"`` checkpoints each layer (non-reentrant:
+        the backward recomputes it from its saved input), ``"dots"`` (save
+        the matmul outputs) is not ported.  Like the reference, a stage
+        that is not scanned (``scan_layers=False`` or one layer) is not
+        rematerialised."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat policy {remat!r}")
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save matmul outputs) is not ported")
+        scan = self.cfg.scan_layers and self.repeats > 1
+        recompute = (scan and remat == "full" and torch.is_grad_enabled())
         for i in range(self.repeats):
-            x = self.block.apply(layer_slice(p, i), x, **kw)
+            lp = layer_slice(p, i)
+            if recompute:
+                x = checkpoint(self.block.apply, lp, x, use_reentrant=False,
+                               **kw)
+            else:
+                x = self.block.apply(lp, x, **kw)
         return x
 
     def decode(self, p, cache, x, **kw):

@@ -1,8 +1,8 @@
 """Functional model layers (``repro.models.layers``) on torch tensors.
 
 Projections are plain ``torch.matmul``, as the reference leaves them to
-XLA; ``apply_norm`` runs the RMSNorm kernel (its plain version on the
-CPU).
+XLA; ``apply_norm`` runs the RMSNorm kernels through their autograd
+Function (the plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ def norm_meta(cfg) -> dict[str, ParamMeta]:
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """RMSNorm, eps 1e-6, fp32 inside, output in x's dtype."""
-    return kops.rms_norm(x, p["scale"], 1e-6)
+    """RMSNorm, eps 1e-6, fp32 inside, output in x's dtype;
+    differentiable, its backward the RMSNorm backward kernel."""
+    return kops.rms_norm_fn(x, p["scale"], 1e-6)
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -42,13 +43,36 @@ def embed(table: torch.Tensor, ids: torch.Tensor, cfg) -> torch.Tensor:
     return table[ids].to(cfg.compute_dtype)
 
 
+class _UnembedF32(torch.autograd.Function):
+    """``x2 @ table^T`` of low-precision inputs returned in fp32 (cuBLAS
+    accumulates in fp32 and skips the rounding to the inputs' dtype).
+    ``torch.mm(..., out_dtype=)`` has no derivative, so the backward is
+    two plain products: the fp32 gradient rounded to the inputs' dtype
+    against the table and against x2.  That rounding of the logits'
+    gradient is one step the reference's transpose (fp32 cotangent times
+    the bf16 operand) does not take; it keeps both products on the bf16
+    tensor cores, where fp32 products of [B*S, V] x [V, D] would cost
+    ~12 TFLOP a step at the CUDA cores' fp32 rate.  The parity check of
+    chip_smoke.py holds the resulting gradients against fp32 ones."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return torch.mm(g, table), torch.mm(g.t(), x2)
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor, cfg) -> torch.Tensor:
     """Logits ``[..., D] @ [V, D]^T`` in fp32: products of the inputs
     accumulated and returned in fp32, as the reference's
     ``preferred_element_type=float32``."""
     if x.is_cuda and x.dtype != torch.float32:
-        logits = torch.mm(x.reshape(-1, x.shape[-1]), table.t(),
-                          out_dtype=torch.float32)
+        logits = _UnembedF32.apply(x.reshape(-1, x.shape[-1]), table)
         logits = logits.reshape(*x.shape[:-1], table.shape[0])
     else:
         logits = torch.matmul(x.float(), table.float().t())

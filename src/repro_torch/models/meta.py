@@ -47,12 +47,25 @@ def stacked(meta: ParamMeta, n: int) -> ParamMeta:
     return ParamMeta((n,) + meta.shape, meta.dtype, meta.init, meta.scale)
 
 
-def tree_map(fn, tree: Any) -> Any:
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (anything that is not a dict,
+    list or tuple); each of ``rest`` is walked in step and hands ``fn``
+    its subtree at the leaf's place, so it may be deeper (an optimizer
+    state of ``{"m", "v"}`` per parameter)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in its order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def stack_tree(metas: Any, n: int) -> Any:

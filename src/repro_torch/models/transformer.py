@@ -12,12 +12,24 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.runtime.device import resolve_device
 
 from .blocks import build_stages
 from .layers import apply_norm, embed, embed_meta, norm_meta, unembed
 from .meta import ParamMeta, tree_init
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token CE; logits fp32 [B,S,V], labels int [B,S]."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss > 0:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss
 
 
 class LM:
@@ -28,6 +40,9 @@ class LM:
                 f"(family={cfg.family!r}, attention={cfg.attention!r})")
         if cfg.norm != "rmsnorm":
             raise NotImplementedError(f"norm={cfg.norm!r} is not ported")
+        if cfg.mtp_depth > 0:
+            raise NotImplementedError("multi-token prediction (mtp_depth > 0) "
+                                      "is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.stages = build_stages(cfg)
@@ -57,16 +72,63 @@ class LM:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     # -- full sequence --------------------------------------------------------
-    def forward(self, p, tokens):
-        """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux, hidden)."""
-        tokens = self._tensor(tokens, torch.long)
-        x = embed(p["embed"], tokens, self.cfg)
+    def _trunk(self, p, tokens):
+        """Embed ``[B, S]`` tokens and run every stage at positions
+        0..S-1; returns the last hidden states."""
+        x = embed(p["embed"], self._tensor(tokens, torch.long), self.cfg)
         positions = torch.arange(x.shape[1], device=self.device)
         for stage, sp in zip(self.stages, p["stages"]):
             x = stage.apply(sp, x, positions=positions)
+        return x
+
+    def forward(self, p, tokens):
+        """tokens ``[B, S]`` -> (logits ``[B, S, V]`` fp32, aux, hidden)."""
+        x = self._trunk(p, tokens)
         h = apply_norm(p["final_norm"], x, self.cfg)
         logits = unembed(h, self._head_table(p), self.cfg)
         return logits, torch.zeros((), device=self.device), x
+
+    # -- training loss --------------------------------------------------------
+    def loss_fn(self, p, batch: dict):
+        """(loss, {"ce", "moe_aux"}) for ``batch`` = {"tokens", "labels"}
+        ``[B, S]``; differentiable in ``p``.  ``moe_aux`` is 0 for the
+        dense decoders the port has."""
+        cfg = self.cfg
+        if batch.get("image_embeds") is not None:
+            raise NotImplementedError("image embeddings (the VLM prefix) "
+                                      "are not ported")
+        labels = self._tensor(batch["labels"], torch.long)
+        x = self._trunk(p, batch["tokens"])
+        aux = torch.zeros((), device=self.device)
+        h = apply_norm(p["final_norm"], x, cfg)
+        table = self._head_table(p)
+        if cfg.ce_impl == "chunked":
+            loss = self._chunked_ce(h, table, labels)
+        else:
+            loss = cross_entropy_loss(unembed(h, table, cfg), labels)
+        metrics = {"ce": loss, "moe_aux": aux}
+        return loss + aux, metrics
+
+    def _chunked_ce(self, h, table, labels, n_chunks: int = 16):
+        """Never holds [B, S, V]: per-chunk unembed + CE over sequence
+        chunks, each checkpointed so its logits are recomputed in the
+        backward rather than kept.  The mean of the chunk means (chunks
+        are equal in size)."""
+        cfg = self.cfg
+        s = h.shape[1]
+        while s % n_chunks != 0:
+            n_chunks //= 2
+        c = s // n_chunks
+
+        def chunk_loss(hc, lc):
+            return cross_entropy_loss(unembed(hc, table, cfg), lc)
+
+        losses = []
+        for i in range(0, s, c):
+            hc, lc = h[:, i:i + c], labels[:, i:i + c]
+            losses.append(checkpoint(chunk_loss, hc, lc, use_reentrant=False)
+                          if torch.is_grad_enabled() else chunk_loss(hc, lc))
+        return torch.stack(losses).mean()
 
     # -- serving --------------------------------------------------------------
     def paged_cache_spec(self, batch: int, max_seq: int, *, num_blocks: int,

@@ -4,7 +4,8 @@ These tests need an NVIDIA card (sm_90a) and nvcc; elsewhere they skip.
 Run them on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
 Tolerances as in chip_smoke.py: bf16 within 2 ulps (rtol 2^-6) plus a
 small atol for the attention kernels' fp32-vs-bf16 softmax weights; fp32
-to 1e-5.
+to 1e-5; flash attention (bf16 only) also by relative L2 error, per
+tensor and per row (see REL_TOL below).
 """
 
 import math
@@ -12,6 +13,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_verify as fv
 from repro_torch.kernels import ops, rmsnorm
@@ -212,3 +214,169 @@ def test_verify_wrapper_raises_on_what_the_kernel_does_not_take(gen):
         ops.flash_verify(q[:, :, 0], k[:40].view(5, 8, 2, 64)[:, :, 0],
                          k[:40].view(5, 8, 2, 64)[:, :, 0],
                          torch.ones(5, 5, 7, dtype=torch.bool, device="cuda"))
+
+
+# -- training kernels ---------------------------------------------------------
+# Flash attention, bf16 only on the card: the plain versions round P (and
+# dS) to bf16 before the products that take them, as the kernels do, so
+# the two differ in summation order and where such a rounding flips.
+# Outputs are ~0.03 at late rows and keys, so as in chip_smoke.py each of
+# o, dq, dk, dv is held by its relative L2 error (1e-2) and each row (one
+# position and head) by its L2 error over its norm plus 1 % of the median
+# row norm (5e-2): an error confined to a few late tiles fails.
+REL_TOL, ROW_TOL = 1e-2, 5e-2
+# softcap 2 on ~N(0,1) scores: tanh far from linear (see _assert_cap_moves)
+SOFTCAP = 2.0
+
+
+def _rel_err(got, want):
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    diff = (got - want).norm(dim=-1)
+    norm = want.norm(dim=-1)
+    return (float(diff.norm() / norm.norm()),
+            float((diff / (norm + 0.01 * norm.median())).max()))
+
+
+def _assert_rel_close(got, want, name):
+    assert torch.isfinite(got).all(), name
+    whole, row = _rel_err(got, want)
+    assert whole <= REL_TOL and row <= ROW_TOL, (name, whole, row)
+
+
+@pytest.mark.parametrize("shape", [(8, 4096), (300, 4096), (3, 5, 64)])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.float32)])
+def test_rms_norm_bwd_kernel_matches_plain(gen, shape, dtype, wdtype):
+    x = _randn(gen, *shape, dtype=dtype)
+    w = _randn(gen, shape[-1], dtype=wdtype)
+    dy = _randn(gen, *shape, dtype=dtype)
+    before = rmsnorm.bwd.launches
+    dx, dw = ops.rms_norm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm.bwd.launches == before + 1
+    want_dx, want_dw = rmsnorm.bwd_plain(x, w, dy)
+    assert dx.dtype == dtype and dw.dtype == wdtype
+    torch.testing.assert_close(dx, want_dx, **TOL[dtype])
+    # dw sums over every row: fp32 partials in another order
+    torch.testing.assert_close(dw.float(), want_dw.float(), atol=1e-3,
+                               rtol=2.0 ** -6 if wdtype == torch.bfloat16
+                               else 1e-4)
+
+
+def _attn_inputs(gen, b, s, h, kvh, d, dtype):
+    q = _randn(gen, b, s, h, d, dtype=dtype)
+    k = _randn(gen, b, s, kvh, d, dtype=dtype)
+    v = _randn(gen, b, s, kvh, d, dtype=dtype)
+    return q, k, v
+
+
+def _assert_cap_moves(q, k, v, do, kw, want_o, want):
+    """The capped plain outputs differ from the uncapped ones by more than
+    ten times REL_TOL, so the check above could see a kernel that
+    ignored the cap or its derivative."""
+    kw0 = dict(kw, cap=0.0)
+    o0, lse0 = fa.flash_attention_plain(q, k, v, **kw0)
+    want0 = fa.flash_attention_bwd_plain(q, k, v, o0, lse0, do, **kw0)
+    for name, w0, w in zip(("o", "dq", "dk", "dv"), (o0,) + want0,
+                           (want_o,) + want):
+        assert _rel_err(w0, w)[0] > 10 * REL_TOL, name
+
+
+@pytest.mark.parametrize("s,h,kvh,d,causal,window,cap", [
+    (128, 4, 4, 128, True, 0, 0.0),
+    (200, 8, 2, 64, True, 0, 0.0),
+    (256, 4, 1, 128, True, 64, 0.0),
+    (96, 4, 2, 64, True, 0, SOFTCAP),
+    (160, 2, 2, 32, False, 0, 0.0),
+    (130, 4, 4, 128, False, 40, SOFTCAP),
+    (1024, 2, 2, 128, True, 0, 0.0),
+    (2048, 4, 2, 128, True, 0, 0.0),
+])
+def test_flash_attention_kernels_match_plain(gen, s, h, kvh, d, causal,
+                                             window, cap):
+    dtype = torch.bfloat16
+    q, k, v = _attn_inputs(gen, 2, s, h, kvh, d, dtype)
+    kw = dict(causal=causal, window=window, scale=1 / math.sqrt(d), cap=cap)
+    f0, b0 = fa.launches, fa.bwd.launches
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o, want_o, **TOL[dtype])
+    _assert_rel_close(o, want_o, "o")
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    do = _randn(gen, *o.shape, dtype=dtype)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        _assert_rel_close(g, w, name)
+    assert (fa.launches, fa.bwd.launches) == (f0 + 1, b0 + 1)
+    if cap:
+        _assert_cap_moves(q, k, v, do, kw, want_o, want)
+
+
+def test_flash_attention_reads_strided_views(gen):
+    """q, k, v as views of one fused [B, S, (H + 2 Kv) * D] projection,
+    the layout a fused QKV matmul would give: no copy, same result."""
+    b, s, h, kvh, d = 2, 96, 4, 2, 64
+    qkv = _randn(gen, b, s, (h + 2 * kvh) * d, dtype=torch.bfloat16)
+    q = qkv[..., :h * d].view(b, s, h, d)
+    k = qkv[..., h * d:(h + kvh) * d].view(b, s, kvh, d)
+    v = qkv[..., (h + kvh) * d:].view(b, s, kvh, d)
+    assert not q.is_contiguous()
+    o, _ = ops.flash_attention_fwd(q, k, v)
+    want, _ = ops.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
+    torch.testing.assert_close(o, want, atol=0, rtol=0)
+
+
+def test_training_functions_launch_the_kernels_under_backward(gen):
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        gen, 1, 64, 4, 2, 64, torch.bfloat16))
+    x = _randn(gen, 64, 256, dtype=torch.bfloat16).requires_grad_()
+    w = torch.ones(256, dtype=torch.bfloat16, device="cuda",
+                   requires_grad=True)
+    ops.reset_launch_counts()
+    y = ops.rms_norm_fn(x, w)
+    o = ops.flash_attention(q, k, v)
+    (o.float().square().sum() + y.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert counts["rms_norm"] == 1 and counts["rms_norm_bwd"] == 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v, x, w))
+
+
+def test_training_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    q, k, v = _attn_inputs(gen, 1, 64, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_fwd(*_attn_inputs(gen, 1, 64, 4, 2, 48,
+                                              torch.bfloat16))
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.flash_attention_fwd(q.float(), k, v)
+    with pytest.raises(ValueError, match="bfloat16"):   # no fp32 kernels
+        ops.flash_attention_fwd(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention_bwd(*(t.float() for t in (q, k, v, q)),
+                                torch.zeros(1, 4, 64, device="cuda"),
+                                q.float())
+    with pytest.raises(ValueError, match="heads over"):
+        ops.flash_attention_fwd(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention_fwd(q.transpose(1, 3).contiguous().transpose(
+            1, 3), k, v)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention_fwd(q, k, v, window=-1)
+    x = _randn(gen, 8, 4096, dtype=torch.bfloat16)
+    w = _randn(gen, 4096, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dy"):
+        ops.rms_norm_bwd(x, w, x.float())
+    with pytest.raises(ValueError, match="dtype"):
+        ops.rms_norm_bwd(x.half(), w, x.half())
