@@ -4,14 +4,17 @@
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. print the card's name and power limit; build the four CUDA sources
+  1. print the card's name and power limit; build the five CUDA sources
      from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, in
      bf16, at the shapes the main paths give it (paged_verify at a
      prefill chunk, T=128, and at a speculative verify, T=5; the
      training kernels at B=4, S=2048, H=Kv=32, D=128, causal, and
      rms_norm_bwd at [8192, 4096]; plus a GQA and a window + softcap
-     attention shape for correctness);
+     attention shape for correctness; matmul in fp32 at [4096, 768] @
+     [768, 3072], at the ragged [4096, 768] @ [768, 30522] and at a
+     tape-backward a^T @ g with K = 4096, and in bf16, against its plain
+     version with TF32 off);
   3. time each kernel, its plain version and one PyTorch call for the
      same function (a yardstick the port never calls);
   4. serve codeqwen1.5-7b at full width (random weights from --seed,
@@ -19,6 +22,9 @@ Phases, each of which raises (non-zero exit) on failure:
      prompts of 128..1024 tokens and 64 new tokens each, counting every
      kernel launch of that run; then the same requests again with
      speculative decoding on (n-gram proposer, k=4), counting again;
+     then four more plain runs that time the decode step with the
+     projections through ``ops.dot_general`` and through a direct
+     ``torch.matmul``, in turns;
      then train codeqwen1.5-7b at full width, depth cut from 32 to 4
      layers, for 16 AdamW steps of batch 4 x 2048 tokens through
      ``repro_torch.training.train`` (remat "full", flash attention),
@@ -28,7 +34,16 @@ Phases, each of which raises (non-zero exit) on failure:
      from the same bf16 weights), and the loss and three gradients of a
      training batch likewise; check that ``LM.forward`` runs the
      flash-attention kernel, and that the speculative engine emits the
-     plain engine's tokens on the card (2 layers, fp32).
+     plain engine's tokens on the card (2 layers, fp32);
+  6. Flashlight's core stack under ``repro_torch.session(backend=
+     "hopper")``: a BERT-base-width transformer (12 layers, d 768, 12
+     heads, vocab 30522, fp32, batch 8 x 512 from the ported data
+     pipeline) trained through the tape for 10 SGD-momentum steps, every
+     matmul of its forward and backward on the Hopper matmul kernel, its
+     first step held against ``backend="torch"`` (cuBLAS, TF32 off); the
+     paper's quickstart CNN at its own size (``val_err < 20``); and the
+     backend-swap demo (a counting backend under the full-width 2-layer
+     codeqwen1.5-7b forward, a hopper matmul, a session kernel override).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script exits non-zero and
@@ -52,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
 
 # bf16 tolerances, |kernel - plain| <= ATOL + RTOL * |plain|:
 # RMSNorm: both round one fp32 result to bf16, so they differ by at most
@@ -153,8 +169,9 @@ def time_ms(fn, iters: int = 20, replays: int = 10,
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -174,7 +191,7 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     paths = build.build(["rmsnorm", "flash_decode", "flash_verify",
-                         "flash_attention"])
+                         "flash_attention", "matmul"])
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -430,7 +447,8 @@ def verify_checks(gen) -> dict:
             "at_verify_shape": out["verify"]}
 
 
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rms_norm_bwd")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rms_norm_bwd",
+                 "matmul")
 TRAIN_SHAPE = dict(b=4, s=2048, h=32, kv=32, d=128)
 
 
@@ -625,9 +643,10 @@ def make_requests(vocab: int, rng):
 
 
 def serve(model, params, seed: int, *, speculative: bool,
-          profile_steps: int = 0) -> dict[str, int]:
+          profile_steps: int = 0, stats: dict | None = None) -> dict[str, int]:
     """One serve run of the 8 requests, plain or speculative (n-gram,
-    k=4); returns the kernel launches of that run alone."""
+    k=4); returns the kernel launches of that run alone and puts its
+    decode ms per step (per round) into ``stats``."""
     from repro_torch.kernels import ops
     from repro_torch.runtime import ServingPolicy
     from repro_torch.serving import Request, ServeEngine
@@ -710,6 +729,8 @@ def serve(model, params, seed: int, *, speculative: bool,
     decode_s = wall - prefill_s[0]
     ttft = sorted(r.first_token_time - r.submit_time for r in reqs)
     steps = n_rounds if speculative else n_decode
+    if stats is not None:
+        stats["decode_ms"] = 1e3 * decode_s / steps
     log(f"[{tag}] {len(done)} requests, {n_prompt} prompt tokens, {n_gen} "
         f"generated in {wall:.3f} s ({n_prefill} prefill chunk calls, "
         f"{n_decode} decode steps, {n_verify} verify calls, "
@@ -778,6 +799,8 @@ def kernel_group(name: str) -> str:
         return "paged attention (port)"
     if "rmsnorm" in name:
         return "rms_norm (port)"
+    if "mm_f32_kernel" in name or "mm_bf16_kernel" in name:
+        return "matmul (port)"
     if any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma", "cublas")):
         return "matmul (cuBLAS)"
     if "at::native" in name:
@@ -907,7 +930,7 @@ def train_phase(seed: int, profile_steps: int) -> dict[str, int]:
                 "flash_attention_bwd": cfg.n_layers,
                 "rms_norm": 2 * (2 * cfg.n_layers) + 1,  # final norm once
                 "rms_norm_bwd": 2 * cfg.n_layers + 1,
-                "paged_decode": 0, "paged_verify": 0}
+                "paged_decode": 0, "paged_verify": 0, "matmul": 0}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if counts != want:
         raise AssertionError(f"train: launches {counts}, expected {want}")
@@ -1160,6 +1183,409 @@ def token_identity(seed: int) -> None:
         f"to the plain run, {diverged} diverged within the margin bound")
 
 
+# -- matmul (phases 2 and 3) --------------------------------------------------
+
+# matmul against its plain version (fp32 products with TF32 off, then one
+# rounding to the promoted dtype), held by the relative L2 error of the
+# whole product and of its worst row and worst column (each over its norm
+# plus 1 % of the median), so a zeroed or misplaced edge tile fails: fp32
+# sums in another order (~sqrt(K) x 2^-24 relative) to 1e-5 whole and
+# 1e-4 per row / column; a bf16 output is one bf16 rounding (2^-9
+# relative) from the plain one, to 1e-2 and 5e-2.
+MM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 5e-2)}
+FP32_PEAK = "67 TFLOP/s fp32 outside the tensor cores (H100 SXM data sheet)"
+
+
+def check_mm(name: str, got, want) -> tuple[float, float]:
+    """(relative L2 error, worst row or column) of a product."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values from the kernel")
+    whole_tol, row_tol = MM_TOL[got.dtype]
+    errs = [rel_err(g, w) for g, w in
+            ((got, want), (got.transpose(-1, -2), want.transpose(-1, -2)))]
+    whole, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+    if not (whole <= whole_tol and worst <= row_tol):
+        raise AssertionError(
+            f"{name}: relative L2 error {whole:.3e} (limit {whole_tol}), "
+            f"worst row / column {worst:.3e} (limit {row_tol})")
+    return whole, worst
+
+
+def matmul_checks(gen) -> dict:
+    """Phase 2 and 3 for matmul at the core stack's shapes: fp32 [4096,
+    768] @ [768, 3072] (a BERT-base MLP projection over 8 x 512 tokens),
+    the ragged fp32 [4096, 768] @ [768, 30522] (its vocabulary head), the
+    tape's weight gradient a^T @ g with K = 4096 (a transposed view), and
+    bf16 at the first shape; each timed beside its bound (fp32 against
+    the CUDA cores' fp32 peak, bf16 against the tensor cores'), its plain
+    version and ``torch.matmul`` (TF32 off for both)."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen).to(dtype).cuda()
+
+    cases = [
+        ("fp32 [4096,768] @ [768,3072]",
+         lambda: (rand(4096, 768), rand(768, 3072))),
+        ("bf16 [4096,768] @ [768,3072]",
+         lambda: (rand(4096, 768, dtype=bf16), rand(768, 3072, dtype=bf16))),
+        ("fp32 ragged [4096,768] @ [768,30522]",
+         lambda: (rand(4096, 768), rand(768, 30522))),
+        ("fp32 a^T @ g: [4096,768]^T (a view) @ [4096,3072], K=4096",
+         lambda: (rand(4096, 768).t(), rand(4096, 3072))),
+    ]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for shape, make in cases:
+            a, b = make()
+            got, want = ops.matmul(a, b), mm.plain(a, b)
+            whole, worst = check_mm(f"matmul {shape}", got, want)
+            err = float((got.float() - want.float()).abs().max())
+            m, k = a.shape
+            n = b.shape[1]
+            nbytes = (a.numel() * a.element_size() + b.numel()
+                      * b.element_size() + m * n * got.element_size())
+            peak = BF16_FLOPS if got.dtype == bf16 else FP32_FLOPS
+            b_ms, b_by = bound(nbytes, 2.0 * m * n * k, peak)
+            out.append({
+                "shape": shape, "max_abs_err": err, "rel_l2": whole,
+                "worst_row_or_col": worst,
+                "ms": time_ms(lambda: ops.matmul(a, b), iters=5, replays=2,
+                              graph=False),
+                "plain_ms": time_ms(lambda: mm.plain(a, b), iters=5,
+                                    replays=2, graph=False),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_peak": FP32_PEAK if peak == FP32_FLOPS else H100_PEAK,
+                "library_ms": time_ms(lambda: torch.matmul(a, b), iters=5,
+                                      replays=2, graph=False)})
+            del a, b, got, want
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for r in out:
+        log(f"[check] matmul {r['shape']}: relative L2 error "
+            f"{r['rel_l2']:.2e}, worst row / column {r['worst_row_or_col']:.2e}, "
+            f"max abs err {r['max_abs_err']:.3e}")
+        log(f"[time] matmul {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, torch.matmul {r['library_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bound_peak']})")
+    return {"name": "matmul", "route": "cuda", "source": mm.SOURCE,
+            "replaces": mm.REPLACES, **out[0],
+            "max_abs_err": max(r["max_abs_err"] for r in out),
+            "library": "torch.matmul (cuBLAS, TF32 off)",
+            "at_other_shapes": out[1:]}
+
+
+# -- phase 6: Flashlight's core stack -------------------------------------------
+
+# BERT-base's published widths (arXiv:1810.04805): the ``bert_like`` family
+# of the reference's overhead benchmark at full size
+CORE_SHAPE = dict(d=768, heads=12, layers=12, vocab=30522, b=8, s=512)
+CORE_STEPS = 10
+# SGD momentum 0.9 without warmup diverged at lr 0.01 and above on this
+# random model (reduced-depth rehearsals on the CPU); 0.002 falls steadily
+CORE_LR = 0.002
+# first step under hopper against torch (cuBLAS, TF32 off), both fp32 on
+# the same weights: sums in other orders move the loss by ~1e-7 relative
+# and the gradients by ~1e-6; the loss to 1e-4 relative, each gradient
+# leaf by its relative L2 error to 1e-3.  A leaf whose gradient is below a
+# thousandth of the global norm (the key biases, whose exact gradient is
+# zero) is held against that floor, since both sides are rounding noise.
+CORE_LOSS_RTOL = 1e-4
+CORE_GRAD_RTOL = 1e-3
+CORE_GRAD_FLOOR = 1e-3
+
+
+def core_batches(seed: int, n: int):
+    """``n`` batches of 8 x 512 byte tokens from the ported data pipeline
+    (synthetic corpus, packed, shuffled), on the card."""
+    import types
+
+    from repro_torch.launch.train import make_batches
+
+    cfg = types.SimpleNamespace(family="dense", vocab_size=CORE_SHAPE["vocab"])
+    return [(torch.from_numpy(x["tokens"]).long().cuda(),
+             torch.from_numpy(x["labels"]).long().cuda())
+            for x in make_batches(cfg, CORE_SHAPE["b"], CORE_SHAPE["s"], n,
+                                  seed=seed)]
+
+
+def core_agreement(model, batch) -> None:
+    """First-step loss and gradients under ``hopper`` (the matmul
+    kernel) against ``torch`` (cuBLAS, TF32 off) on the same weights."""
+    import repro_torch
+    from repro_torch.core.tensor import HopperBackend
+
+    named = dict(model.container.named_params())
+    res = {}
+    for name, backend in (("torch", "torch"), ("hopper", HopperBackend())):
+        with repro_torch.session(backend=backend):
+            model.container.zero_grad()
+            loss = model.loss(*batch)
+            loss.backward()
+            res[name] = (float(loss.data),
+                         {k: v.grad for k, v in named.items()})
+    model.container.zero_grad()
+    (ref_loss, ref), (loss, got) = res["torch"], res["hopper"]
+    gnorm = float(torch.sqrt(sum(g.double().square().sum()
+                                 for g in ref.values())))
+    worst, worst_name = 0.0, ""
+    for k, want in ref.items():
+        err = float((got[k].double() - want.double()).norm()
+                    / max(float(want.double().norm()),
+                          CORE_GRAD_FLOOR * gnorm))
+        if err > worst:
+            worst, worst_name = err, k
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"[core] first step, hopper vs torch (TF32 off), same weights: loss "
+        f"{loss:.6f} vs {ref_loss:.6f} (relative {loss_err:.2e}, limit "
+        f"{CORE_LOSS_RTOL}); worst gradient leaf {worst_name}: relative L2 "
+        f"error {worst:.2e} (limit {CORE_GRAD_RTOL}) over {len(ref)} leaves")
+    if not (loss_err <= CORE_LOSS_RTOL and worst <= CORE_GRAD_RTOL
+            and math.isfinite(loss)):
+        raise AssertionError("core: the hopper backend's first step "
+                             "disagrees with the torch backend's")
+
+
+def core_phase(seed: int, profile_steps: int) -> dict[str, int]:
+    """Train the BERT-base-width core stack through the tape under
+    ``session(backend="hopper")`` for ``CORE_STEPS`` SGD-momentum steps,
+    counting kernel launches of that run; returns them."""
+    import repro_torch
+    from repro_torch.core.optim import SGD
+    from repro_torch.core.tensor import HopperBackend
+    from repro_torch.kernels import ops
+    from repro_torch.launch.tape_transformer import TapeTransformer
+
+    c = CORE_SHAPE
+    b, s = c["b"], c["s"]
+    t0 = time.perf_counter()
+    model = TapeTransformer(c["d"], c["heads"], c["layers"], c["vocab"],
+                            seed=seed, device="cuda")
+    params = model.container.params()
+    n_params = sum(p.data.numel() for p in params)
+    batches = core_batches(seed, CORE_STEPS + 3)
+    log(f"[core] BERT-base width: {c['layers']} x TransformerBlock("
+        f"{c['d']}, {c['heads']}) (ff {4 * c['d']}, LayerNorm, GELU), "
+        f"Embedding / Linear({c['vocab']}), fp32: {n_params / 1e6:.1f} M "
+        f"params from seed {seed} ({time.perf_counter() - t0:.1f} s); batch "
+        f"{b} x {s}; SGD lr {CORE_LR} momentum 0.9")
+    core_agreement(model, batches[0])
+
+    backend = HopperBackend()
+    per_step = model.matmuls_per_step()
+    with repro_torch.session(backend=backend, tag="core-bert-base") as sess:
+        opt = SGD(params, lr=CORE_LR, momentum=0.9)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, secs = [], []
+        for toks, labels in batches[:CORE_STEPS]:
+            t0 = time.perf_counter()
+            loss = model.loss(toks, labels)
+            loss.backward()
+            opt.step()
+            opt.zeroGrad()
+            losses.append(float(loss.data))      # the step's one read-back
+            secs.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[core] session {json.dumps(sess.describe()['backend'])}, tag "
+            f"{sess.tag!r}")
+    want = {k: 0 for k in counts}
+    want["matmul"] = per_step * CORE_STEPS
+    if counts != want or backend.fallback_calls != 0 \
+            or backend.kernel_calls != want["matmul"]:
+        raise AssertionError(
+            f"core: launches {counts}, expected {want}; hopper backend "
+            f"kernel_calls {backend.kernel_calls}, fallback_calls "
+            f"{backend.fallback_calls}")
+    if not all(math.isfinite(x) for x in losses) or not \
+            (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise AssertionError(f"core: the loss did not fall: {losses}")
+    d, v, L = c["d"], c["vocab"], c["layers"]
+    flops = 3 * 2 * b * s * (L * (12 * d * d + 2 * s * d) + d * v)
+    step_s = sum(secs[1:]) / len(secs[1:])
+    for i, (loss, sec) in enumerate(zip(losses, secs)):
+        log(f"[core] step {i}: {1e3 * sec:.1f} ms, loss {loss:.4f}")
+    log(f"[core] steps 1..{CORE_STEPS - 1}: {1e3 * step_s:.2f} ms per step, "
+        f"{b * s / step_s:.1f} tokens/s; matmul {flops / 1e12:.3f} TFLOP per "
+        f"step ({flops / step_s / 1e12:.2f} TFLOP/s over the step); "
+        f"{per_step} matmul launches per step, fallback_calls 0; peak device "
+        f"memory {peak:.2f} GiB")
+    profile_core(model, opt, backend, batches[CORE_STEPS:], step_s,
+                 detail=profile_steps > 0)
+    del model, params, opt, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_core(model, opt, backend, batches, step_s, detail) -> None:
+    """The device's busy share of core steps: one step outside the
+    window, then the rest under torch.profiler."""
+    import repro_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step(toks, labels):
+        loss = model.loss(toks, labels)
+        loss.backward()
+        opt.step()
+        opt.zeroGrad()
+        return float(loss.data)
+
+    with repro_torch.session(backend=backend):
+        step(*batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for toks, labels in batches[1:]:
+                step(toks, labels)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    n = len(batches) - 1
+    busy = report_profile(prof, f"{n} core steps", n, wall_us, detail=detail)
+    if busy:
+        log(f"[core] device busy {busy / n / 1e3:.2f} ms per step: "
+            f"{100 * busy / n / 1e6 / step_s:.1f} % of an unprofiled step "
+            f"({1e3 * step_s:.2f} ms)")
+
+
+def quickstart_phase() -> dict[str, int]:
+    """The paper's quickstart (``examples/quickstart.py``) at its own size
+    under ``hopper``: 28 batches of 64 a epoch, 4 epochs, SGD momentum;
+    its two Linear layers run the matmul kernel (six launches a training
+    batch, two an evaluation batch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, val_err = quickstart.run(backend="hopper", device="cuda",
+                                log=lambda m: log(f"[quickstart] {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want["matmul"] = 4 * (28 * 6 + 4 * 2)
+    log(f"[quickstart] {wall:.2f} s for 4 epochs; launches {counts}")
+    if counts != want or not val_err < 20.0:
+        raise AssertionError(f"quickstart: validation error {val_err:.2f} % "
+                             f"(limit 20), launches {counts}, expected {want}")
+    return counts
+
+
+def swap_demo(seed: int) -> None:
+    """``examples/swap_backend.py`` steps 1, 3 and 4 (step 2, the lazy
+    backend, comes with the compiler): a counting backend sees every
+    projection of the full-width 2-layer codeqwen1.5-7b forward, the
+    hopper backend runs ``ops.matmul`` on the kernel, and a session kernel
+    override intercepts exactly one call."""
+    import repro_torch
+    from repro_torch.core.tensor import HopperBackend, TorchBackend, ops
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.models import LM
+
+    class CountingBackend(TorchBackend):
+        name = "counting"
+
+        def __init__(self):
+            self.counts = {}
+
+        def _bump(self, op):
+            self.counts[op] = self.counts.get(op, 0) + 1
+
+        def add(self, lhs, rhs):
+            self._bump("add")
+            return super().add(lhs, rhs)
+
+        def matmul(self, lhs, rhs):
+            self._bump("matmul")
+            return super().matmul(lhs, rhs)
+
+        def dot_general(self, lhs, rhs, dimension_numbers,
+                        preferred_element_type):
+            self._bump("dot_general")
+            return super().dot_general(lhs, rhs, dimension_numbers,
+                                       preferred_element_type)
+
+    cfg = two_layer_config(torch.bfloat16)
+    model = LM(cfg)
+    params = model.init(seed)
+    toks = torch.zeros(1, 16, dtype=torch.long, device="cuda")
+    with repro_torch.session(backend=CountingBackend(),
+                             tag="instrumented") as sess:
+        with torch.no_grad():
+            logits, _, _ = model.forward(params, toks)
+        counts = dict(sess.backend_instance().counts)
+    if counts.get("dot_general", 0) <= 10 or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"swap 1: counting backend saw {counts}")
+    log(f"[swap 1] counting backend under the full-width 2-layer "
+        f"{cfg.name} forward saw {counts}")
+    del model, params, logits
+    torch.cuda.empty_cache()
+
+    before = mm.launches
+    with repro_torch.session(backend=HopperBackend()) as sess:
+        a = torch.ones(128, 128, device="cuda")
+        out = ops.matmul(a, a)
+        torch.cuda.synchronize()
+        calls = sess.backend_instance().kernel_calls
+    if mm.launches != before + 1 or calls != 1 or float(out[0, 0]) != 128.0:
+        raise AssertionError("swap 3: ops.matmul under hopper did not run "
+                             "the kernel")
+    log(f"[swap 3] hopper backend: {calls} kernel call(s), "
+        f"result[0,0]={float(out[0, 0])}")
+
+    seen = []
+
+    def traced_matmul(lhs, rhs):
+        seen.append((tuple(lhs.shape), tuple(rhs.shape)))
+        return torch.matmul(lhs, rhs)
+
+    with repro_torch.session(kernels={"matmul": traced_matmul}):
+        a = torch.ones(32, 32, device="cuda")
+        ops.matmul(a, a)
+    if seen != [((32, 32), (32, 32))]:
+        raise AssertionError(f"swap 4: the override saw {seen}")
+    log(f"[swap 4] kernel override intercepted {len(seen)} matmul: {seen}")
+
+
+def decode_ab(model, params, seed: int) -> None:
+    """What the dispatch layer costs the host-bound decode step: the plain
+    serve run again with the projections through ``ops.dot_general``
+    (``models.layers.linear``) and through a direct ``torch.matmul`` (the
+    projection before it went through the dispatch), in turns direct,
+    dispatch, dispatch, direct; prints the decode ms per step of each."""
+    from repro_torch.models import attention, layers
+
+    dispatch = layers.linear
+
+    def direct(x, w):
+        return torch.matmul(x, w)
+
+    ms = {"direct": [], "dispatch": []}
+    try:
+        for mode in ("direct", "dispatch", "dispatch", "direct"):
+            layers.linear = attention.linear = (
+                direct if mode == "direct" else dispatch)
+            stats = {}
+            serve(model, params, seed, speculative=False, stats=stats)
+            ms[mode].append(stats["decode_ms"])
+    finally:
+        layers.linear = attention.linear = dispatch
+    log("[decode-ab] decode ms per step at 8 slots, projections through "
+        f"torch.matmul directly: {[round(x, 2) for x in ms['direct']]}; "
+        f"through ops.dot_general: {[round(x, 2) for x in ms['dispatch']]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1168,7 +1594,8 @@ def main(argv=None) -> int:
                          "step (the prefill chunk calls) and this many "
                          "decode steps with torch.profiler and print where "
                          "the time goes; print the same breakdown of the "
-                         "two profiled training steps")
+                         "two profiled training steps and of the profiled "
+                         "core steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1179,17 +1606,31 @@ def main(argv=None) -> int:
     build_kernels()
     rows = kernel_checks(args.seed) + training_kernel_checks(
         torch.Generator().manual_seed(args.seed + 5))
+    rows.append(matmul_checks(torch.Generator().manual_seed(args.seed + 6)))
     model, params = full_width_model(args.seed)
     by_path = {"serve": serve(model, params, args.seed, speculative=False,
                               profile_steps=args.profile_steps),
                "speculative": serve(model, params, args.seed,
                                     speculative=True)}
+    decode_ab(model, params, args.seed)
     del model, params
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(args.seed, args.profile_steps)
     torch.cuda.empty_cache()
     logits_parity(args.seed)
     by_path["forward"] = train_parity(args.seed)
+    torch.cuda.empty_cache()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        by_path["core"] = core_phase(args.seed, args.profile_steps)
+        by_path["quickstart"] = quickstart_phase()
+        swap_demo(args.seed)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

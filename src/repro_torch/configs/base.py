@@ -2,7 +2,9 @@
 ``repro.configs.base.ModelConfig``.
 
 Precision is part of the config (``param_dtype`` / ``compute_dtype`` are
-torch dtypes); there is no session-level precision policy in the port.
+torch dtypes).  ``get_config`` applies the session's precision policy
+over the architecture's defaults, as the reference does; explicit
+overrides beat both.
 """
 
 from __future__ import annotations
@@ -72,7 +74,26 @@ def get_config(arch: str, reduced: bool = False, **overrides) -> ModelConfig:
                          f"ported: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     cfg = mod.reduced_config() if reduced else mod.config()
+    cfg = _apply_session_precision(cfg)
     return cfg.with_(**overrides) if overrides else cfg
+
+
+def _apply_session_precision(cfg: ModelConfig) -> ModelConfig:
+    """The session's precision policy beats the arch default.  The port's
+    caches hold the compute dtype, so ``cache_dtype="fp8"`` is refused."""
+    from repro_torch.runtime import current_session, resolve_dtype
+
+    pol = current_session().precision
+    if pol.cache_dtype not in (None, "compute"):
+        raise NotImplementedError(
+            f"cache_dtype {pol.cache_dtype!r}: fp8 KV storage is not ported "
+            "yet (ROADMAP queue 1 item 2)")
+    changes: dict = {}
+    if pol.param_dtype is not None:
+        changes["param_dtype"] = resolve_dtype(pol.param_dtype)
+    if pol.compute_dtype is not None:
+        changes["compute_dtype"] = resolve_dtype(pol.compute_dtype)
+    return cfg.with_(**changes) if changes else cfg
 
 
 def list_archs() -> list[str]:

@@ -88,6 +88,21 @@ def to_numpy(tree: Any) -> Any:
     return t.numpy()
 
 
+def module_params(module, tree: dict) -> None:
+    """Load a core-stack module's weights from the reference's: ``tree``
+    maps each parameter name of the reference module's ``param_pytree()``
+    (``m0.weight``, ``attn.wq.bias``, ...) to a numpy array; each becomes
+    the data of the port module's ``Variable`` of that name, in that
+    Variable's dtype and on its device.  The names must match exactly."""
+    own = dict(module.named_params())
+    if set(own) != set(tree):
+        raise KeyError(f"parameter names differ: only in the port "
+                       f"{sorted(set(own) - set(tree))}, only in the tree "
+                       f"{sorted(set(tree) - set(own))}")
+    for name, var in own.items():
+        var.data = to_tensor(tree[name], var.data.device, var.data.dtype)
+
+
 def cache_from_jax(pools: list, device: str | torch.device = "cuda",
                    dtype: torch.dtype | None = None) -> list:
     """Reference paged cache (``LM.init_paged_cache``) -> the port's

@@ -8,7 +8,7 @@ from __future__ import annotations
 import abc
 import queue
 import threading
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -23,6 +23,22 @@ class Dataset(abc.ABC):
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+
+class TensorDataset(Dataset):
+    """Wraps a list of equal-length arrays; sample i is a tuple of rows."""
+
+    def __init__(self, tensors: Sequence[np.ndarray]):
+        self.tensors = [np.asarray(t) for t in tensors]
+        n = len(self.tensors[0])
+        if any(len(t) != n for t in self.tensors):
+            raise ValueError("TensorDataset: arrays of unequal length")
+
+    def __len__(self):
+        return len(self.tensors[0])
+
+    def __getitem__(self, idx):
+        return tuple(t[idx] for t in self.tensors)
 
 
 class BatchDataset(Dataset):

@@ -1,9 +1,14 @@
-"""First-order optimizers (``repro.core.optim.optimizer``): the functional
-API of ``Optimizer``, ``Adam`` and ``AdamW`` over trees of tensors, with
-the reference's order of rounding.
+"""First-order optimizers (``repro.core.optim.optimizer``): ``SGD``,
+``Adam`` and ``AdamW`` with the reference's order of rounding, in its two
+call styles:
 
-``new_params, new_state = opt.apply(params, grads, state, lr)`` as in the
-reference, but the update is made in place under ``torch.no_grad()``:
+* imperative (paper Listing 9): ``opt = SGD(model.params(), lr=0.1,
+  momentum=0.9)``, then ``loss.backward(); opt.step(); opt.zeroGrad()``
+  over the module's tape ``Variable``s;
+* functional (the production loop): ``new_params, new_state =
+  opt.apply(params, grads, state, lr)`` over trees of tensors.
+
+Both update in place under ``torch.no_grad()``:
 every parameter tensor is overwritten with its new value and every state
 dict gets its new moments, and the same trees are returned.  A training
 step thus keeps one copy of the parameters, and parameters that are
@@ -16,14 +21,13 @@ update ``m`` and ``v`` are fp32.  There are no fp32 master weights: the
 parameter is updated in fp32 and rounded back to its dtype, then the
 decoupled decay is subtracted in the parameter's dtype.
 
-``SGD``, ``Adafactor`` and the imperative ``Variable`` API (``step`` /
-``zeroGrad``) are not ported.
+``Adafactor`` is not ported yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -31,9 +35,13 @@ from repro_torch.models.meta import tree_leaves, tree_map
 
 
 class Optimizer:
-    """Base: functional ``init`` / ``apply`` / ``apply_with_count``."""
+    """Base: functional ``init`` / ``apply`` / ``apply_with_count`` +
+    the imperative ``Variable`` bridge (``step`` / ``zeroGrad``)."""
 
-    def __init__(self, state_dtype: torch.dtype | None = None):
+    def __init__(self, params: Sequence[Any] | None = None,
+                 state_dtype: torch.dtype | None = None):
+        self._vars = list(params) if params is not None else None
+        self._state = None
         self.state_dtype = state_dtype
         self.step_count = 0
 
@@ -61,14 +69,71 @@ class Optimizer:
     def _update_leaf(self, p, g, s, lr, count) -> None:
         raise NotImplementedError
 
+    # -- imperative API (paper Listing 9) ----------------------------------------
+    def step(self, lr: float | None = None) -> None:
+        """Update every ``Variable`` given at construction that has a
+        gradient, in place (``v.data`` keeps its tensor)."""
+        if self._vars is None:
+            raise RuntimeError("imperative step() needs params at __init__")
+        if self._state is None:
+            self._state = [self._init_leaf(v.data) for v in self._vars]
+        self.step_count += 1
+        use_lr = lr if lr is not None else getattr(self, "lr", None)
+        with torch.no_grad():
+            for v, s in zip(self._vars, self._state):
+                if v.grad is not None:
+                    self._update_leaf(v.data, v.grad, s, use_lr,
+                                      self.step_count)
+
+    def zeroGrad(self) -> None:  # noqa: N802 - paper-faithful name
+        if self._vars is not None:
+            for v in self._vars:
+                v.zero_grad()
+
+    zero_grad = zeroGrad
+
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.state_dtype is None else x.to(self.state_dtype)
 
 
+class SGD(Optimizer):
+    """SGD with momentum, weight decay and Nesterov, as the reference's:
+    ``buf = momentum * buf + g``, then ``p -= lr * (g + momentum * buf)``
+    (Nesterov) or ``p -= lr * buf``; the buffer lives in the parameter's
+    dtype (or ``state_dtype``) and is updated in place."""
+
+    def __init__(self, params=None, lr: float = 0.01, momentum: float = 0.0,
+                 weight_decay: float = 0.0, nesterov: bool = False, **kw):
+        super().__init__(params, **kw)
+        self.lr, self.momentum = lr, momentum
+        self.weight_decay, self.nesterov = weight_decay, nesterov
+
+    def _init_leaf(self, p):
+        if self.momentum == 0.0:
+            return ()
+        return self._cast(torch.zeros_like(p))
+
+    def _update_leaf(self, p, g, s, lr, count) -> None:
+        lr = self.lr if lr is None else lr
+        if self.weight_decay:
+            g = g + self.weight_decay * p
+        if self.momentum == 0.0:
+            p.sub_(lr * g.to(p.dtype))
+            return
+        s.mul_(self.momentum).add_(g.to(s.dtype))
+        d = (g + self.momentum * s.to(g.dtype)) if self.nesterov \
+            else s.to(g.dtype)
+        p.sub_(lr * d.to(p.dtype))
+
+
+SGDOptimizer = SGD  # paper-faithful alias (Listing 9)
+
+
 class Adam(Optimizer):
-    def __init__(self, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.0, **kw):
-        super().__init__(**kw)
+    def __init__(self, params=None, lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, **kw):
+        super().__init__(params, **kw)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay = weight_decay
 
@@ -98,10 +163,11 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Decoupled weight decay (the production-default optimizer)."""
 
-    def __init__(self, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1, **kw):
-        super().__init__(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=0.0,
-                         **kw)
+    def __init__(self, params=None, lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1, **kw):
+        super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=0.0, **kw)
         self.decoupled_wd = weight_decay
 
     def _update_leaf(self, p, g, s, lr, count) -> None:

@@ -6,22 +6,28 @@ the kernel to the plain version: an argument the kernel does not take
 is an error.  Each launch adds one to its kernel's ``launches`` counter
 (``KERNELS``).  The training path reaches the kernels through two
 autograd Functions, ``rms_norm_fn`` and ``flash_attention``, whose
-backward passes are kernels too.
+backward passes are kernels too; ``matmul`` is reached through
+``HopperBackend`` by every ``ops.matmul`` of the core stack, forward and
+tape backward.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import flash_verify as _fv
+from . import matmul as _mm
 from . import rmsnorm as _rms
 
 # name -> the object whose ``launches`` counts that kernel's launches
 KERNELS = {"rms_norm": _rms, "rms_norm_bwd": _rms.bwd,
            "paged_decode": _fd, "paged_verify": _fv,
-           "flash_attention": _fa, "flash_attention_bwd": _fa.bwd}
+           "flash_attention": _fa, "flash_attention_bwd": _fa.bwd,
+           "matmul": _mm}
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,6 +78,96 @@ def _check_rms(name: str, x: torch.Tensor, weight: torch.Tensor) -> None:
              f"{name}: D={d} must be a multiple of {vec} and at most "
              f"{_rms.max_dim(x.dtype)}")
     _require(_aligned(x), f"{name}: x must be 16-byte aligned")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with ``torch.matmul``'s semantics (1-D operands, batch
+    dimensions broadcast), float32 or bfloat16 in any mix, accumulated in
+    fp32 and returned in ``promote_types(a, b)``.  Operands are read
+    through their strides (transposed and broadcast views are not
+    copied); any M, N, K."""
+    if not _on_cuda(a, b):
+        return _mm.plain(a, b)
+    _require(a.dtype in _mm.DTYPES and b.dtype in _mm.DTYPES,
+             f"matmul: dtypes {a.dtype} @ {b.dtype}; the kernel takes "
+             "float32 and bfloat16")
+    _require(a.ndim >= 1 and b.ndim >= 1, "matmul: 0-d operand")
+    _require(not _needs_grad(a, b),
+             "matmul: the kernel has no torch autograd; differentiate it "
+             "with the tape (core.autograd.functions.matmul), not "
+             "torch.autograd or torch.func")
+    a2 = a if a.ndim > 1 else a[None]
+    b2 = b if b.ndim > 1 else b[:, None]
+    m, k = a2.shape[-2:]
+    n = b2.shape[-1]
+    _require(b2.shape[-2] == k, f"matmul: shapes {tuple(a.shape)} @ "
+             f"{tuple(b.shape)} do not contract")
+    lead = torch.broadcast_shapes(a2.shape[:-2], b2.shape[:-2])
+    out = torch.empty(*lead, m, n, dtype=torch.promote_types(a.dtype,
+                                                             b.dtype),
+                      device=a.device)
+    if out.numel():
+        rows = _fold_rows(a2) if b2.ndim == 2 else None
+        if rows is not None:      # [..., M, K] @ [K, N]: one product
+            _mm_launch(rows, b2, out.view(-1, n), (), (), ())
+        else:
+            ae = a2.expand(*lead, m, k)
+            be = b2.expand(*lead, k, n)
+            sizes, sa, sb = _batch_dims(lead, ae.stride()[:-2],
+                                        be.stride()[:-2])
+            if len(sizes) > _mm.MAX_BATCH_DIMS:   # materialize the batch
+                ae = ae.reshape(-1, m, k)
+                be = be.reshape(-1, k, n)
+                sizes, sa, sb = ((ae.shape[0],), ae.stride()[:1],
+                                 be.stride()[:1])
+            _mm_launch(ae, be, out.view(-1, m, n), sizes, sa, sb)
+    if b.ndim == 1:
+        out = out.squeeze(-1)
+    if a.ndim == 1:
+        out = out.squeeze(-2 if b.ndim > 1 else -1)
+    return out
+
+
+def _fold_rows(a: torch.Tensor) -> torch.Tensor | None:
+    """``a`` ``[..., M, K]`` as a ``[M', K]`` view when its leading
+    dimensions fold into its rows without a copy, else None."""
+    try:
+        return a.view(-1, a.shape[-1])
+    except RuntimeError:
+        return None
+
+
+def _batch_dims(sizes, sa, sb):
+    """Drop size-1 batch dimensions and merge neighbours that step
+    uniformly in both operands; returns (sizes, a strides, b strides)."""
+    out = [(s, x, y) for s, x, y in zip(sizes, sa, sb) if s != 1]
+    merged: list[tuple[int, int, int]] = []
+    for s, x, y in out:
+        if merged:
+            ps, px, py = merged[-1]
+            if px == x * s and py == y * s:
+                merged[-1] = (ps * s, x, y)
+                continue
+        merged.append((s, x, y))
+    return (tuple(t[0] for t in merged), tuple(t[1] for t in merged),
+            tuple(t[2] for t in merged))
+
+
+def _mm_launch(a, b, c, sizes, sa, sb) -> None:
+    """Launch the kernel for A ``[.., M, K]``, B ``[.., K, N]`` and the
+    contiguous C, with up to three batch dimensions (sizes and strides
+    of each operand)."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    pad = _mm.MAX_BATCH_DIMS - len(sizes)
+    batch = (1,) * pad + tuple(sizes)
+    nz = math.prod(batch)
+    _require(nz <= _mm.MAX_GRID_YZ
+             and -(-m // _mm.TILE_M) <= _mm.MAX_GRID_YZ,
+             f"matmul: {nz} batches of {m} rows exceed the grid")
+    _mm.launch(a, (a.stride(-2), a.stride(-1)) + (0,) * pad + tuple(sa),
+               b, (b.stride(-2), b.stride(-1)) + (0,) * pad + tuple(sb),
+               c, m, n, k, batch)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

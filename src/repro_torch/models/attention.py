@@ -3,7 +3,8 @@ for training and ``forward``, and the serving path.
 
 Full-sequence attention on the card runs the flash-attention kernels
 (forward and backward, through their autograd Function) for every
-``attention_impl``; on the CPU ``ref`` and ``blockwise`` run the
+``attention_impl``, unless the session injects its own
+(``session(kernels={"attention": fn})``, as in the reference); on the CPU ``ref`` and ``blockwise`` run the
 reference's masked grouped softmax and ``pallas`` runs the kernel's plain
 version.  Decode writes the new K/V into the paged pool in place and runs the
 paged flash-decode kernel; chunked prefill (and the speculative wide
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_verify import grouped_attention_plain
+from repro_torch.runtime.stack import current_session
 
 from .layers import apply_rope, linear
 from .meta import ParamMeta
@@ -106,7 +108,12 @@ def gqa_attention(p, x, cfg, *, positions, window: int = 0,
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    if x.is_cuda or (cfg.attention_impl == "pallas" and prefix_len == 0):
+    override = current_session().kernels.attention
+    if override is not None:
+        out = override(q, k, v, positions=positions, causal=causal,
+                       window=window, prefix_len=prefix_len, scale=scale,
+                       cap=cfg.logit_softcap)
+    elif x.is_cuda or (cfg.attention_impl == "pallas" and prefix_len == 0):
         if prefix_len > 0:
             raise NotImplementedError(
                 "gqa_attention: the flash-attention kernel takes causal and "

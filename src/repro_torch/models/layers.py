@@ -1,8 +1,17 @@
 """Functional model layers (``repro.models.layers``) on torch tensors.
 
-Projections are plain ``torch.matmul``, as the reference leaves them to
-XLA; ``apply_norm`` runs the RMSNorm kernels through their autograd
-Function (the plain versions on the CPU).
+Projections route through the tensor dispatch (``ops.dot_general``), as
+the reference's do, so a backend swap (``session(backend=...)``) reaches
+the whole model zoo.  The default backend and ``HopperBackend`` run them
+with ``torch.tensordot`` (cuBLAS on the card; the Hopper backend, like
+the reference's Pallas backend, does not override ``dot_general``), and
+the model's training differentiates them with torch's autograd.
+
+``apply_norm`` runs the RMSNorm kernels through their autograd Function
+(the plain versions on the CPU) whatever the backend.  That is the port's
+rule, stricter than the reference's, whose ``apply_norm`` reaches its
+kernel only under a backend that offers ``rms_norm_fused``: on the card
+every path the port ships runs its kernels.
 """
 
 from __future__ import annotations
@@ -10,14 +19,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.tensor import ops as T
 from repro_torch.kernels import ops as kops
 
 from .meta import ParamMeta
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[..., D] @ [D, F] -> [..., F]."""
-    return torch.matmul(x, w)
+    """[..., D] @ [D, F] -> [..., F] through the dispatch layer."""
+    nd = x.ndim
+    dn = (((nd - 1,), (0,)), ((), ()))
+    return T.dot_general(x, w, dn, preferred_element_type=None)
 
 
 # -- norms ------------------------------------------------------------------

@@ -1,18 +1,85 @@
-"""Serving policies, copied from ``repro.runtime.policies`` so the
-engine's checks read the same.
+"""Policies a :class:`~repro_torch.runtime.session.Session` carries,
+copied from ``repro.runtime.policies`` so their checks read the same.
 
-The port has no Session: a ``ServingPolicy`` is passed to the engine
-directly.  Speculative decoding is ported with the n-gram proposer (or
-one the caller passes); ``draft="model"`` is refused.  Prefix sharing
-is not ported yet: its policy is kept (off by default) and the engine
-refuses it when enabled.
+``KernelOverrides`` and ``PrecisionPolicy`` are the reference's, with
+``resolve_dtype`` returning torch dtypes.  Serving: speculative decoding
+is ported with the n-gram proposer (or one the caller passes);
+``draft="model"`` is refused.  Prefix sharing is not ported yet: its
+policy is kept (off by default) and the engine refuses it when enabled.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, fields
+from typing import Any, Callable
+
+import torch
+
+
+def _callable_name(fn: Callable | None) -> str | None:
+    if fn is None:
+        return None
+    name = getattr(fn, "__qualname__", None) or getattr(fn, "__name__", None)
+    if name is None:
+        name = type(fn).__name__
+    mod = getattr(fn, "__module__", None)
+    return f"{mod}.{name}" if mod else name
+
+
+@dataclass(frozen=True)
+class KernelOverrides:
+    """Injectable kernels (``repro.runtime.policies.KernelOverrides``).
+
+    attention:
+        full-sequence attention, ``fn(q, k, v, *, positions, causal,
+        window, prefix_len, scale, cap) -> [B, S, H, Dv]``; replaces the
+        kernel in :func:`~repro_torch.models.attention.gqa_attention`.
+    decode_attention:
+        the reference's dense-cache decode attention ``fn(q, k, v, valid,
+        *, scale, cap)``.  The port serves from the paged cache only, so
+        ``ServeEngine`` refuses it until the dense cache is ported
+        (ROADMAP queue 1 item 2).
+    matmul:
+        contraction ``fn(lhs, rhs)``; consulted by ``ops.matmul`` before
+        backend dispatch.
+    """
+
+    attention: Callable | None = None
+    decode_attention: Callable | None = None
+    matmul: Callable | None = None
+
+    def replace(self, **kw) -> "KernelOverrides":
+        return dataclasses.replace(self, **kw)
+
+    def describe(self) -> dict[str, str | None]:
+        return {f.name: _callable_name(getattr(self, f.name))
+                for f in fields(self)}
+
+
+@dataclass(frozen=True)
+class PrecisionPolicy:
+    """Session-level dtype overrides applied when a model config is built
+    (``repro_torch.configs.get_config``).
+
+    ``None`` leaves the architecture config's own choice in place.
+    Strings keep the policy serializable; ``resolve_dtype`` maps them to
+    torch dtypes at the point of use.  ``cache_dtype`` follows the
+    reference's convention, ``"compute"`` or ``"fp8"``; the port's caches
+    hold the compute dtype, so ``"fp8"`` is refused by ``get_config``.
+    """
+
+    param_dtype: str | None = None
+    compute_dtype: str | None = None
+    cache_dtype: str | None = None
+
+    def replace(self, **kw) -> "PrecisionPolicy":
+        return dataclasses.replace(self, **kw)
+
+    def describe(self) -> dict[str, str | None]:
+        return {"param_dtype": self.param_dtype,
+                "compute_dtype": self.compute_dtype,
+                "cache_dtype": self.cache_dtype}
 
 
 @dataclass(frozen=True)
@@ -116,3 +183,20 @@ class ServingPolicy:
                 "prefill_chunk": self.prefill_chunk,
                 "prefix": self.prefix.describe(),
                 "speculative": self.speculative.describe()}
+
+
+_DTYPE_ALIASES = {
+    "f32": "float32", "fp32": "float32", "float32": "float32",
+    "f16": "float16", "fp16": "float16", "float16": "float16",
+    "bf16": "bfloat16", "bfloat16": "bfloat16",
+}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    """Map a policy dtype string to the torch dtype."""
+    try:
+        return getattr(torch, _DTYPE_ALIASES[name.lower()])
+    except KeyError:
+        raise ValueError(
+            f"unknown precision dtype {name!r}; "
+            f"known: {sorted(set(_DTYPE_ALIASES))}") from None

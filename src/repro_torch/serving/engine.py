@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.runtime.device import host_to_device
 from repro_torch.runtime.policies import ServingPolicy
+from repro_torch.runtime.stack import current_session
 
 from .kv_cache import OutOfMemory, PagedKVCache
 from .scheduler import make_scheduler
@@ -66,7 +67,16 @@ class ServeEngine:
         self.params = params
         self.slots = batch_slots
         self.max_seq = max_seq
-        self.policy = policy if policy is not None else ServingPolicy()
+        # without a policy the engine serves the session's scenario, as
+        # the reference's does
+        sess = current_session()
+        self.policy = policy if policy is not None else sess.serving
+        if sess.kernels.decode_attention is not None:
+            raise NotImplementedError(
+                "session(kernels={'decode_attention': fn}): the override "
+                "takes the reference's dense-cache view; the port decodes "
+                "from the paged cache with its paged_decode kernel (dense "
+                "cache: ROADMAP queue 1 item 2)")
         self.device = model.device
 
         # SSM-family caches are recurrent state, not position-addressed:

@@ -380,3 +380,118 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         ops.rms_norm_bwd(x, w, x.float())
     with pytest.raises(ValueError, match="dtype"):
         ops.rms_norm_bwd(x.half(), w, x.half())
+
+
+# -- matmul ------------------------------------------------------------------
+# The kernel against its plain version (fp32 products with TF32 off, then
+# one rounding to the promoted dtype).  Held by relative L2 error of the
+# whole product and of its worst row and worst column (each over its norm
+# plus 1 % of the median), so a zeroed or misplaced edge tile fails: fp32
+# sums in another order (~sqrt(K) x 2^-24 relative): 1e-5 whole, 1e-4 per
+# row / column; a bf16 output differs from the plain one by one bf16
+# rounding (2^-9 relative): 1e-2 whole, 5e-2 per row / column.
+MM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 5e-2)}
+
+
+@pytest.fixture
+def no_tf32(gen):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield gen
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _assert_mm_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    whole, worst = MM_TOL[got.dtype]
+    for g, w in ((got, want), (got.transpose(-1, -2), want.transpose(-1, -2))):
+        w_err, r_err = _rel_err(g, w)
+        assert w_err <= whole and r_err <= worst, (w_err, r_err)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (4096, 3072, 768),
+                                   (4096, 768, 30522), (768, 4096, 3072),
+                                   (144, 64, 10), (130, 33, 257), (1, 1, 1),
+                                   (513, 4096, 129), (64, 17, 5)])
+@pytest.mark.parametrize("ta,tb", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+def test_matmul_kernel_matches_plain(no_tf32, m, k, n, ta, tb):
+    from repro_torch.kernels import matmul as mm
+
+    a = _randn(no_tf32, m, k, dtype=ta)
+    b = _randn(no_tf32, k, n, dtype=tb)
+    before = mm.launches
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1
+    _assert_mm_close(got, mm.plain(a, b))
+
+
+@pytest.mark.parametrize("layout", ["a_T", "b_T", "both_T"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_reads_transposed_operands(no_tf32, layout, dtype):
+    """The tape's backward operands: a^T @ g (K = 4096 rows of a Linear's
+    input) and g @ w^T, as views whose last stride is not 1."""
+    from repro_torch.kernels import matmul as mm
+
+    m, k, n = 768, 4096, 3072
+    a = _randn(no_tf32, k, m, dtype=dtype).t() if "a" in layout or \
+        layout == "both_T" else _randn(no_tf32, m, k, dtype=dtype)
+    b = _randn(no_tf32, n, k, dtype=dtype).t() if "b" in layout or \
+        layout == "both_T" else _randn(no_tf32, k, n, dtype=dtype)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    _assert_mm_close(got, mm.plain(a, b))
+
+
+@pytest.mark.parametrize("case", ["scores", "pv", "broadcast", "linear_3d",
+                                  "four_batch_dims"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_batched_and_broadcast(no_tf32, case, dtype):
+    from repro_torch.kernels import matmul as mm
+
+    def r(*s):
+        return _randn(no_tf32, *s, dtype=dtype)
+
+    a, b = {
+        "scores": lambda: (r(8, 12, 512, 64), r(8, 12, 512, 64).transpose(
+            -1, -2)),
+        "pv": lambda: (r(8, 12, 512, 512), r(8, 12, 512, 64)),
+        "broadcast": lambda: (r(3, 1, 100, 70), r(5, 70, 33)),
+        "linear_3d": lambda: (r(8, 512, 768), r(768, 30522)[:, :3000]),
+        "four_batch_dims": lambda: (r(2, 3, 2, 2, 40, 24),
+                                    r(2, 1, 2, 2, 24, 56)),
+    }[case]()
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    _assert_mm_close(got, mm.plain(a, b))
+
+
+def test_hopper_backend_runs_the_kernel_on_the_card(no_tf32):
+    import repro_torch
+    from repro_torch.core.tensor import HopperBackend
+    from repro_torch.core.tensor import ops as tops
+    from repro_torch.kernels import matmul as mm
+
+    backend = HopperBackend()
+    a = _randn(no_tf32, 4, 64, 48)
+    w = _randn(no_tf32, 48, 40)
+    before = mm.launches
+    with repro_torch.session(backend=backend):
+        got = tops.matmul(a, w)
+    torch.cuda.synchronize()
+    assert mm.launches == before + 1 and backend.kernel_calls == 1
+    _assert_mm_close(got, mm.plain(a, w))
+
+
+def test_matmul_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    a = torch.ones(4, 4, dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        ops.matmul(a, a)
+    with pytest.raises(ValueError, match="contract"):
+        ops.matmul(_randn(gen, 4, 5), _randn(gen, 4, 5))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.matmul(_randn(gen, 4, 4), torch.ones(4, 4))
